@@ -1,0 +1,456 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Run from the repository root with no arguments::
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero and prints no result line):
+
+1. The card's name and power limit; the build of every CUDA kernel from
+   ``modular_audio_pipeline_tpu_torch/csrc`` (one ``nvcc`` per source, all
+   started together), timed.
+2. The flash-attention kernel against its plain PyTorch version at the
+   large-v3-turbo encoder shape [16, 20, 1500, 64] bf16 (and a small f32
+   case), with the kernel's, the plain version's and
+   ``scaled_dot_product_attention``'s times (the latter only as a yardstick;
+   the port never calls it).
+3. The ancestry-attention kernel against its plain version at the decode
+   shape (16 windows x 5 beams, 20 heads, ctx 448, hd 64), int8 and bf16
+   caches, with this step's rows written at the last position: the output
+   and the written cache are compared, and both are timed.
+4. End to end: ``WhisperTranscriber("large-v3-turbo", weights_path="random:0",
+   beam_size=5, max_decode_tokens=224, device="cuda")`` with the no-speech
+   gate off transcribes 8 minutes of voiced audio (16 windows, one batch),
+   after one warm-up run. Both kernels' launch counts are reset just before
+   and read just after, and must be non-zero.
+5. The shipped ``whisper-tiny-synth-proxy`` bundle transcribes two held-out
+   synthetic sentences on the card, once through the kernels and once with
+   the model's attention calls bound to the plain versions; the agreement
+   is printed and the kernel path must yield segments.
+
+Float32 products run in full f32 (TF32 off for matmuls and cuDNN
+convolutions). The last lines are the card, the per-kernel JSON line and
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+PROXY = ROOT / "modular_audio_pipeline_tpu" / "weights" / "whisper-tiny-synth-proxy"
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+SR = 16000
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(bytes_moved: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES, flops / peak_flops
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+# -- phase 2 -----------------------------------------------------------------
+
+FLASH_TOL = 1e-2  # bf16: one ulp at |y| in [1, 2) is 7.8e-3; the kernel keeps
+#                   f32 probabilities where the plain version rounds them to bf16
+FLASH_TOL_F32 = 1e-4  # f32: fast exp and another summation order
+
+
+def phase_flash(torch):
+    import torch.nn.functional as F
+
+    from modular_audio_pipeline_tpu_torch.ops.attention import attention_reference, flash_attention
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shape = (16, 20, 1500, 64)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+    out = flash_attention(q, k, v)
+    ref = attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    log(f"flash bf16 {shape}: max_abs_err {err:.3e} (tol {FLASH_TOL})")
+    if not err <= FLASH_TOL:
+        raise AssertionError(f"flash_attention disagrees with its plain version: {err}")
+
+    qs, ks_, vs_ = (t[:2, :4].float().contiguous() for t in (q, k, v))
+    err32 = (flash_attention(qs, ks_, vs_) - attention_reference(qs, ks_, vs_)).abs().max().item()
+    log(f"flash f32 {tuple(qs.shape)}: max_abs_err {err32:.3e} (tol {FLASH_TOL_F32})")
+    if not err32 <= FLASH_TOL_F32:
+        raise AssertionError(f"flash_attention f32 disagrees with its plain version: {err32}")
+
+    ms = time_ms(lambda: flash_attention(q, k, v), 10)
+    plain_ms = time_ms(lambda: attention_reference(q, k, v), 5)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+    b, h, s, d = shape
+    bound_ms, bound_by = bound(4 * q.numel() * q.element_size(), 4.0 * b * h * s * s * d)
+    log(f"flash: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "modular_audio_pipeline_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "modular_audio_pipeline_tpu/ops/attention.py:60",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": lib_ms,
+    }
+
+
+# -- phase 3 -----------------------------------------------------------------
+
+ANC_TOL = 1e-2  # bf16 y: f32 sums in another order may move a rounded
+#                 probability or y by one bf16 ulp (7.8e-3 at |y| in [1, 2))
+
+
+def _anc_inputs(torch, quant: bool, g):
+    bw, kq, h, ctx, hd, n_layers = 16, 5, 20, 448, 64, 4
+    bk, pos, layer = bw * kq, ctx - 1, 2
+    dev = "cuda"
+    q = (torch.randn((bk, h, 1, hd), generator=g, device=dev) * 0.125).to(torch.bfloat16)
+    if quant:
+        def codes(shape):
+            return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+        def scales(shape):
+            return torch.rand(shape, generator=g, device=dev) * 0.02 + 0.001
+
+        cache = [codes((n_layers, bk, h, ctx, hd)), codes((n_layers, bk, h, ctx, hd)),
+                 scales((n_layers, bk, h, ctx)), scales((n_layers, bk, h, ctx))]
+        new = [codes((bk, h, 1, hd)), codes((bk, h, 1, hd)),
+               scales((bk, h, 1)), scales((bk, h, 1))]
+    else:
+        cache = [torch.randn((n_layers, bk, h, ctx, hd), generator=g, device=dev)
+                 .to(torch.bfloat16) for _ in range(2)] + [None, None]
+        new = [torch.randn((bk, h, 1, hd), generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(2)] + [None, None]
+    for c in cache:
+        if c is not None:
+            c[layer, :, :, pos] = 0  # not yet written, as in the decode loop
+    anc = torch.randint(0, kq, (bw, kq, ctx), generator=g, device=dev, dtype=torch.int32)
+    anc[:, :, pos] = torch.arange(kq, device=dev, dtype=torch.int32)  # own-row claim
+    mask = torch.zeros((ctx,), device=dev)  # every position live: the 448 bucket's last step
+    return q, cache, new, anc, mask, layer, pos
+
+
+def _anc_bytes(q, cache, anc, mask, layer):
+    """Bytes the step must move: q and y once, and of layer ``layer`` only
+    the K/V rows (and scales) that some hypothesis selects."""
+    bw, kq, ctx = anc.shape
+    hd = q.shape[-1]
+    h = q.shape[1]
+    selected = int(sum(len(set(r.tolist())) for r in anc.permute(0, 2, 1).reshape(-1, kq).cpu()))
+    row = h * hd * cache[0].element_size() + (h * 4 if cache[2] is not None else 0)
+    return (2 * q.numel() * q.element_size() + 2 * selected * row
+            + anc.numel() * 4 + mask.numel() * 4)
+
+
+def phase_ancestry(torch):
+    from modular_audio_pipeline_tpu_torch.ops.ancestor_attention import (
+        ancestor_attention,
+        ancestor_attention_reference,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    result = None
+    for quant in (True, False):
+        q, cache, new, anc, mask, layer, pos = _anc_inputs(torch, quant, g)
+        mine = [None if c is None else c.clone() for c in cache]
+        plain = [None if c is None else c.clone() for c in cache]
+        y = ancestor_attention(q, *mine, layer, anc, mask, *new, pos)
+        y_ref = ancestor_attention_reference(q, *plain, layer, anc, mask, *new, pos)
+        torch.cuda.synchronize()
+        err = (y.float() - y_ref.float()).abs().max().item()
+        same = all(a is None or torch.equal(a, b) for a, b in zip(mine, plain))
+        name = "int8" if quant else "bf16"
+        log(f"ancestry {name}: max_abs_err {err:.3e} (tol {ANC_TOL}), cache rows equal {same}")
+        if not (err <= ANC_TOL and same):
+            raise AssertionError(f"ancestor_attention ({name}) disagrees with its plain version")
+        ms = time_ms(lambda: ancestor_attention(q, *mine, layer, anc, mask), 50)
+        plain_ms = time_ms(lambda: ancestor_attention_reference(q, *plain, layer, anc, mask), 10)
+        bound_ms, bound_by = bound(_anc_bytes(q, cache, anc, mask, layer),
+                                   4.0 * q.shape[0] * q.shape[1] * anc.shape[-1] * q.shape[-1])
+        log(f"ancestry {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+        if quant:  # the main path's cache type
+            result = {
+                "name": "ancestor_attention", "route": "cuda",
+                "source": "modular_audio_pipeline_tpu_torch/csrc/ancestor_attention.cu",
+                "replaces": "modular_audio_pipeline_tpu/ops/ancestor_attention.py:132",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None,
+            }
+    return result
+
+
+# -- phase 4 -----------------------------------------------------------------
+
+def bench_audio(seconds: float) -> np.ndarray:
+    """The voiced signal bench.py times (its make_audio), as int16 PCM
+    delivers it."""
+    rng = np.random.default_rng(0)
+    n = int(seconds * SR)
+    t = np.arange(n) / SR
+    f0 = 130 + 40 * np.sin(2 * np.pi * 0.4 * t)
+    sig = sum((0.3 / k) * np.sin(2 * np.pi * k * np.cumsum(f0) / SR) for k in range(1, 5))
+    env = (np.sin(2 * np.pi * 1.3 * t) > -0.5).astype(np.float32)
+    out = (sig * env * 0.3).astype(np.float32)
+    out += 0.002 * rng.standard_normal(n).astype(np.float32)
+    return np.clip(out * 32768.0, -32768, 32767).astype(np.int16).astype(np.float32) / 32768.0
+
+
+def phase_end_to_end(torch, tmp: Path):
+    from modular_audio_pipeline_tpu_torch.audio_io import write_wav
+    from modular_audio_pipeline_tpu_torch.ops.ancestor_attention import ancestor_attention
+    from modular_audio_pipeline_tpu_torch.ops.attention import flash_attention
+    from modular_audio_pipeline_tpu_torch.transcriber import WhisperTranscriber
+
+    seconds = 8 * 60.0
+    wav = tmp / "bench.wav"
+    write_wav(str(wav), bench_audio(seconds), SR)
+    t0 = time.perf_counter()
+    tr = WhisperTranscriber(
+        "large-v3-turbo", language="en", weights_path="random:0", beam_size=5,
+        max_decode_tokens=224, word_timestamps=False, device="cuda", lazy_load=False,
+    )
+    tr._backend.no_speech_threshold = None  # as bench.py: every window is parsed
+    torch.cuda.synchronize()
+    log(f"e2e: random large-v3-turbo loaded in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tr.transcribe(str(wav))
+    torch.cuda.synchronize()
+    log(f"e2e: warm-up run {time.perf_counter() - t0:.2f} s")
+
+    flash_attention.launches = 0
+    ancestor_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tr.transcribe(str(wav))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches,
+                "ancestor_attention": ancestor_attention.launches}
+
+    # the encoder's share: encoder + cross K/V of one 16-window batch
+    from modular_audio_pipeline_tpu_torch.models.whisper.decode import encode_audio_kv
+
+    b = tr._backend
+    mel = torch.randn((16, b.dims.n_mels, 3000), device="cuda")
+    encode_s = time_ms(lambda: encode_audio_kv(b.params, b.dims, mel), 2, warmup=1) / 1e3
+    stats = tr._backend.last_stats
+    segs = out["segments"]
+    log(f"e2e: wall {wall:.3f} s, realtime x{seconds / wall:.1f}, segments {len(segs)}, "
+        f"windows {stats['windows']}, decode tokens {stats['decode_tokens']}, "
+        f"launches {launches}; encoder + cross K/V {encode_s:.3f} s of it")
+    if stats["windows"] != 16 or stats["decode_tokens"] <= 0:
+        raise AssertionError(f"unexpected decode workload {stats}")
+    if launches["flash_attention"] != 32 or launches["ancestor_attention"] <= 0:
+        raise AssertionError(f"main path skipped a kernel: {launches}")
+    for s in segs:
+        if not (0.0 <= s["start"] <= s["end"] <= seconds and np.isfinite(s["confidence"])
+                and isinstance(s["text"], str)):
+            raise AssertionError(f"malformed segment {s}")
+    busy, top = device_breakdown(torch, lambda: tr.transcribe(str(wav)))
+    return launches, {"wall_s": wall, "realtime_x": seconds / wall, "segments": len(segs),
+                      "decode_tokens": stats["decode_tokens"], "encode_s": encode_s,
+                      "device_busy_share": busy, "top_kernels_ms": top}
+
+
+def device_breakdown(torch, fn, top: int = 8):
+    """Device busy share and the kernels with the most device time over one
+    run of ``fn``, from torch.profiler. The profiler slows the host, so the
+    busy share it gives is a lower bound; None when it saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(
+        ((e.key, getattr(e, "self_device_time_total", 0) / 1e3, e.count)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA),
+        key=lambda r: -r[1],
+    )
+    busy_ms = sum(r[1] for r in rows)
+    for name, ms, n in rows[:top]:
+        log(f"  device {ms:9.1f} ms  x{n:<6d} {name[:90]}")
+    log(f"e2e (profiled): wall {wall:.3f} s, device busy {busy_ms / 1e3:.3f} s")
+    if busy_ms <= 0:
+        return None, []
+    return busy_ms / 1e3 / wall, [[name[:90], ms, n] for name, ms, n in rows[:top]]
+
+
+# -- phase 5 -----------------------------------------------------------------
+
+_VOCAB = [
+    "alpha", "bravo", "charlie", "delta", "echo", "foxtrot", "golf", "hotel", "india",
+    "juliett", "kilo", "lima", "mike", "november", "oscar", "papa", "quebec", "romeo",
+    "sierra", "tango", "uniform", "victor", "whiskey", "zulu",
+]
+
+
+def _synth_sentence(words, rng) -> np.ndarray:
+    """The proxy's held-out speech: training/synth_asr.synth_sentence of
+    the JAX package, copied (this script imports nothing of it)."""
+    bank_a, bank_b, bank_c = [320.0, 440.0, 600.0, 810.0], [1100.0, 1450.0, 1900.0], [2500.0, 3200.0]
+
+    def word(idx):
+        n = int(0.35 * SR)
+        seg = n // 3
+        t = np.arange(seg) / SR
+        out = np.zeros(n, dtype=np.float32)
+        freqs = (bank_a[idx % 4], bank_b[(idx // 4) % 3], bank_c[(idx // 12) % 2])
+        for k, f in enumerate(freqs):
+            f = f * rng.uniform(0.985, 1.015)
+            tone = np.sin(2 * np.pi * f * t + rng.uniform(0, 2 * np.pi))
+            tone += 0.25 * np.sin(2 * np.pi * 2 * f * t + rng.uniform(0, 2 * np.pi))
+            env = np.minimum(1.0, np.minimum(np.arange(seg), seg - np.arange(seg)) / (0.01 * SR))
+            out[k * seg:(k + 1) * seg] = tone * env
+        out *= rng.uniform(0.25, 0.6)
+        out += rng.uniform(0.002, 0.01) * rng.standard_normal(n).astype(np.float32)
+        return out.astype(np.float32)
+
+    gap = np.zeros(int(0.12 * SR), dtype=np.float32)
+    parts = [np.zeros(int(rng.uniform(0.05, 0.2) * SR), np.float32)]
+    for w in words:
+        parts += [word(w), gap]
+    return np.concatenate(parts)
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Bind the model's two kernel calls to their plain versions."""
+    from modular_audio_pipeline_tpu_torch.models.whisper import model
+    from modular_audio_pipeline_tpu_torch.ops.ancestor_attention import ancestor_attention_reference
+    from modular_audio_pipeline_tpu_torch.ops.attention import attention_reference
+
+    saved = model.flash_attention, model.ancestor_attention
+    model.flash_attention, model.ancestor_attention = attention_reference, ancestor_attention_reference
+    try:
+        yield
+    finally:
+        model.flash_attention, model.ancestor_attention = saved
+
+
+def phase_proxy(torch, tmp: Path):
+    from modular_audio_pipeline_tpu_torch.audio_io import write_wav
+    from modular_audio_pipeline_tpu_torch.transcriber import WhisperTranscriber
+
+    rng = np.random.default_rng(500_000)  # the proxy's held-out stream
+    paths = []
+    for i in range(2):
+        k = int(rng.integers(12, 27))
+        words = rng.integers(0, len(_VOCAB), size=k)
+        path = tmp / f"eval_{i}.wav"
+        write_wav(str(path), _synth_sentence(list(words), rng), SR)
+        paths.append((str(path), " ".join(_VOCAB[w] for w in words)))
+
+    tr = WhisperTranscriber("tiny", language="en", beam_size=5, weights_path=str(PROXY),
+                            max_decode_tokens=128, device="cuda")
+    kernel = [tr.transcribe(p)["segments"] for p, _ in paths]
+    with plain_attention():
+        plain = [tr.transcribe(p)["segments"] for p, _ in paths]
+    key = lambda s: (s["text"], s["start"], s["end"])  # noqa: E731
+    pairs = [(key(a), key(b)) for ka, kb in zip(kernel, plain) for a, b in zip(ka, kb)]
+    n = max(sum(len(s) for s in kernel), sum(len(s) for s in plain))
+    agree = sum(a == b for a, b in pairs) / max(n, 1)
+    for (path, text), segs in zip(paths, kernel):
+        log(f"proxy: ref '{text}'")
+        log(f"proxy: got '{' '.join(s['text'] for s in segs)}'")
+    log(f"proxy: segment agreement kernel vs plain {agree:.3f} "
+        f"({sum(len(s) for s in kernel)} vs {sum(len(s) for s in plain)} segments)")
+    if not all(kernel):
+        raise AssertionError("the kernel path produced no segments on the proxy bundle")
+    return agree
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        log("torch is not installed")
+        return 2
+    if not torch.cuda.is_available():
+        log("no CUDA device: this smoke test runs only on a GPU")
+        return 2
+    sys.path.insert(0, str(ROOT))
+    try:
+        from modular_audio_pipeline_tpu_torch.ops import _build
+    except ImportError as exc:
+        log(f"the port's package is missing next to this script: {exc}")
+        return 2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name_power = card()
+    log(f"card: {name_power}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    _build.build()
+    log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
+    for name in _build.KERNELS:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    t0 = time.perf_counter()
+    kernels = [phase_flash(torch), phase_ancestry(torch)]
+    log(f"phases 2-3 done in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        launches, e2e = phase_end_to_end(torch, Path(d))
+        log(f"phase 4 done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        agree = phase_proxy(torch, Path(d))
+        log(f"phase 5 done in {time.perf_counter() - t0:.1f} s")
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    log(json.dumps({"end_to_end": e2e, "proxy_segment_agreement": agree}))
+
+    print(name_power)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

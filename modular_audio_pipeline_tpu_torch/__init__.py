@@ -1,0 +1,40 @@
+"""modular_audio_pipeline_tpu_torch — the PyTorch/CUDA port of
+``modular_audio_pipeline_tpu`` for NVIDIA Hopper GPUs.
+
+It mirrors the JAX package's layout, module for module, and is tested
+against it on the same inputs and weights. It imports torch and numpy,
+never jax and nothing of the JAX package. Ported so far: Whisper
+transcription over 30 s windows (log-mel, encoder with a hand-written
+flash-attention kernel, beam decode with a hand-written ancestry-attention
+kernel over an int8 KV cache, segment timestamps).
+
+Example::
+
+    from modular_audio_pipeline_tpu_torch import WhisperTranscriber
+
+    tr = WhisperTranscriber("large-v3-turbo", language="en")  # CUDA
+    print(tr.transcribe("speech.wav")["text"])
+
+Names are resolved on first access, so importing the package loads no
+model code.
+"""
+
+import importlib
+
+__all__ = ["WhisperTranscriber", "TorchWhisperBackend", "TranscriptionConfig",
+           "PipelineConfig", "ModelLoadError", "TranscriptionError"]
+
+_HOME = {
+    "WhisperTranscriber": ".transcriber",
+    "TorchWhisperBackend": ".transcriber",
+    "TranscriptionConfig": ".config",
+    "PipelineConfig": ".config",
+    "ModelLoadError": ".exceptions",
+    "TranscriptionError": ".exceptions",
+}
+
+
+def __getattr__(name):
+    if name in _HOME:
+        return getattr(importlib.import_module(_HOME[name], __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

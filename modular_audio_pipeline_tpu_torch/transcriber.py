@@ -1,0 +1,463 @@
+"""Speech-to-text with the PyTorch Whisper stack.
+
+Counterpart of ``modular_audio_pipeline_tpu/transcriber.py`` for the
+batched window path: ``TorchWhisperBackend`` (the counterpart of
+``JaxWhisperBackend``) and ``WhisperTranscriber`` with the same
+constructor, ``from_config``, lazy loading, retry on transient errors and
+result dict::
+
+    {"text": str, "segments": [{"start","end","text","confidence"}, ...],
+     "language": str, "duration": float}
+
+Long audio is cut into 30 s windows, decoded in batches (beam search over
+an int8 KV cache by default) and the window-relative timestamp tokens are
+re-based onto the file timeline.
+
+Runs on CUDA unless the caller passes ``device="cpu"``: ``device=None``
+means ``"cuda"`` and raises when no CUDA device is present. Options of the
+JAX transcriber that this port does not run yet raise
+``NotImplementedError`` naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import logging
+import zlib
+from pathlib import Path
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .audio_io import read_wav, resample_poly
+from .config import RetryConfig
+from .exceptions import ModelLoadError, TranscriptionError
+from .models.whisper.config import MODEL_INFO, WHISPER_DIMS, WhisperDims
+from .models.whisper.convert import load_params, params_from_numpy
+from .models.whisper.decode import DecodeOptions, decode_windows
+from .models.whisper.model import init_params
+from .models.whisper.tokenizer import WhisperTokenizer, load_tokenizer
+from .ops.mel import log_mel
+from .utils import retry_with_backoff
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["WhisperTranscriber", "TorchWhisperBackend"]
+
+_WINDOW_S = 30.0
+_SR = 16000
+_BATCH_BUCKETS = (1, 2, 4, 8, 16)
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# The JAX package's shipped bundles, read by path (never imported).
+_JAX_WEIGHTS = Path(__file__).resolve().parents[1] / "modular_audio_pipeline_tpu" / "weights"
+
+
+def _todo(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet (ROADMAP.md §A, '{item}')"
+    )
+
+
+def _no_retry_unported(exc: Exception, attempt: int) -> None:
+    """Retrying cannot help an option that is not ported (NotImplementedError
+    is a RuntimeError, which transcribe retries): re-raise at once."""
+    if isinstance(exc, NotImplementedError):
+        raise exc
+
+
+def resolve_device(device: Optional[str]) -> torch.device:
+    """``None`` means CUDA; asking for CUDA without a CUDA device raises
+    rather than drifting to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+class TorchWhisperBackend:
+    """Shared engine: params + tokenizer + batched window decoding."""
+
+    def __init__(
+        self,
+        model_name: str,
+        language: str = "en",
+        task: str = "transcribe",
+        temperature: float = 0.0,
+        beam_size: int = 5,
+        prompt: str = "",
+        weights_path: Optional[str] = None,
+        compute_dtype: str = "bfloat16",
+        batch_size: int = 16,
+        max_decode_tokens: int = 224,
+        timestamps: bool = True,
+        word_timestamps: bool = False,
+        temperature_fallback: bool = True,
+        chunking: str = "batched",
+        no_speech_threshold: Optional[float] = 0.6,
+        logprob_threshold: Optional[float] = -1.0,
+        compression_ratio_threshold: Optional[float] = 2.4,
+        patience: Optional[float] = None,
+        kv_cache_dtype: str = "int8",
+        device: Optional[str] = None,
+    ):
+        if model_name not in WHISPER_DIMS:
+            raise ModelLoadError(f"Unknown Whisper model: {model_name}")
+        self.device = resolve_device(device)
+        self.model_name = model_name
+        self.dims: WhisperDims = WHISPER_DIMS[model_name]
+        self.language = language
+        self.task = task
+        self.temperature = temperature
+        self.beam_size = beam_size
+        self.prompt = prompt or ""
+        self.weights_path = weights_path
+        self.compute_dtype = compute_dtype
+        self.batch_size = batch_size
+        self.max_decode_tokens = max_decode_tokens
+        self.timestamps = timestamps
+        self.word_timestamps = word_timestamps
+        self.temperature_fallback = temperature_fallback
+        self.chunking = chunking
+        self.no_speech_threshold = no_speech_threshold
+        self.logprob_threshold = logprob_threshold
+        self.compression_ratio_threshold = compression_ratio_threshold
+        self.patience = patience
+        self.kv_cache_dtype = kv_cache_dtype
+        self.params = None
+        self.tokenizer: Optional[WhisperTokenizer] = None
+        # windows and decoded tokens of the last transcribe_array call
+        self.last_stats: Dict[str, int] = {}
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def load(self) -> None:
+        if self.params is not None:
+            return
+        self.check_supported()
+        dtype = _DTYPES[self.compute_dtype]
+        path = self.weights_path or str(_JAX_WEIGHTS / f"whisper-{self.model_name}")
+
+        if str(path).startswith("random"):
+            seed = int(str(path).partition(":")[2] or 0)
+            logger.warning(
+                "Initialising %s with RANDOM weights (seed %d) — test/bench mode",
+                self.model_name, seed,
+            )
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            self.params = init_params(self.dims, gen, dtype, self.device)
+            self.tokenizer = load_tokenizer(None, n_vocab=self.dims.n_vocab)
+            # Quality gates are meaningless on random weights: every window
+            # would walk the whole retry ladder.
+            self.temperature_fallback = False
+            return
+
+        if not Path(path, "params.npz").exists():
+            raise ModelLoadError(
+                f"No converted Whisper checkpoint for '{self.model_name}'",
+                details=f"Expected params.npz under {path}.",
+            )
+        self.params = params_from_numpy(load_params(path), self.device, dtype)
+        self.tokenizer = load_tokenizer(path, n_vocab=self.dims.n_vocab)
+        logger.info("Loaded Whisper %s from %s", self.model_name, path)
+
+    def unload(self) -> None:
+        self.params = None
+
+    # -- audio -> windows ---------------------------------------------------
+
+    @staticmethod
+    def _windows(audio: np.ndarray) -> np.ndarray:
+        """Pad to a whole number of 30 s windows -> [n_windows, 480000]."""
+        win = int(_WINDOW_S * _SR)
+        n = max(1, int(np.ceil(len(audio) / win)))
+        padded = np.zeros(n * win, dtype=np.float32)
+        padded[: len(audio)] = audio
+        return padded.reshape(n, win)
+
+    def _prompt_tokens(self) -> tuple:
+        if not self.prompt or self.tokenizer is None:
+            return ()
+        ids = self.tokenizer.encode(" " + self.prompt.strip())
+        # whisper caps the conditioning prompt at half the text context
+        return tuple(ids[-(self.dims.n_text_ctx // 2 - 1):])
+
+    @staticmethod
+    def _compression_ratio(text: str) -> float:
+        """zlib compression ratio — whisper's repetition-loop detector."""
+        data = text.encode("utf-8")
+        if not data:
+            return 0.0
+        return len(data) / len(zlib.compress(data))
+
+    def _needs_fallback(self, avg_logprob: float, text: str) -> bool:
+        """Whisper's quality gates, which send a window up the ladder."""
+        cr = self.compression_ratio_threshold
+        lp = self.logprob_threshold
+        return (
+            (cr is not None and self._compression_ratio(text) > cr)
+            or (lp is not None and float(avg_logprob) < lp)
+        )
+
+    def _should_skip_window(self, no_speech_prob: float, avg_logprob: float) -> bool:
+        """Whisper's no-speech gate: drop the window as silence when
+        no_speech_prob is high, unless the decode is confident anyway."""
+        if self.no_speech_threshold is None:
+            return False
+        should_skip = no_speech_prob > self.no_speech_threshold
+        if self.logprob_threshold is not None and avg_logprob > self.logprob_threshold:
+            should_skip = False
+        return should_skip
+
+    # -- decoding ------------------------------------------------------------
+
+    def _decode_options(self, language: str) -> DecodeOptions:
+        return DecodeOptions(
+            language=language,
+            task=self.task,
+            beam_size=self.beam_size,
+            temperature=self.temperature,
+            max_tokens=self.max_decode_tokens,
+            timestamps=self.timestamps,
+            prompt_tokens=self._prompt_tokens(),
+            patience=self.patience,
+            kv_int8=self.kv_cache_dtype == "int8",
+        )
+
+    def check_supported(self) -> None:
+        """Raise NotImplementedError for an option this port cannot run yet."""
+        if self.word_timestamps:
+            raise _todo("word_timestamps=True (DTW word alignment)", "DTW word timestamps")
+        if self.chunking != "batched":
+            raise _todo(f"chunking={self.chunking!r} (the seek loop)", "sequential chunking")
+        if self.language in (None, "", "auto"):
+            raise _todo("language detection", "detect_language")
+        if self.compute_dtype not in _DTYPES:
+            raise _todo(f"compute_type={self.compute_dtype!r}", "compute_type=int8")
+        if self.temperature > 0:
+            raise _todo("temperature > 0 sampling", "temperature ladder")
+
+    def transcribe_array(self, audio: np.ndarray, sr: int) -> Dict[str, Any]:
+        self.check_supported()
+        self.load()
+        if sr != _SR:
+            audio = resample_poly(audio, sr, _SR)
+        duration = len(audio) / _SR
+        windows = self._windows(audio)
+        n_win = windows.shape[0]
+        opts = self._decode_options(self.language)
+
+        segments: List[Dict[str, Any]] = []
+        texts: List[str] = []
+        stats = {"windows": 0, "decode_tokens": 0}
+        for start in range(0, n_win, self.batch_size):
+            b = min(self.batch_size, n_win - start)
+            # bucket the batch so a bounded set of shapes runs
+            bucket = next((c for c in _BATCH_BUCKETS if c >= b), b)
+            padded = np.zeros((bucket, windows.shape[1]), np.float32)
+            padded[:b] = windows[start : start + b]
+            mel = log_mel(torch.from_numpy(padded).to(self.device), n_mels=self.dims.n_mels)
+            result = decode_windows(self.params, self.dims, self.tokenizer, mel, opts)
+            stats["windows"] += b
+            stats["decode_tokens"] += int(result.lengths[:b].sum())
+
+            for i in range(b):
+                tokens_row = result.tokens[i]
+                avg_lp = float(result.avg_logprobs[i])
+                if self.temperature_fallback and opts.temperature == 0.0:
+                    text = self.tokenizer.decode(
+                        [t for t in tokens_row if t < self.tokenizer.eot])
+                    if self._needs_fallback(avg_lp, text):
+                        raise _todo(
+                            f"the temperature-fallback ladder (window {start + i} failed "
+                            "whisper's quality gates)", "temperature ladder")
+                if self._should_skip_window(float(result.no_speech_probs[i]), avg_lp):
+                    continue  # whisper drops silent/music windows entirely
+                offset = (start + i) * _WINDOW_S
+                win_dur = min(_WINDOW_S, duration - offset)
+                segs = self._parse_window(tokens_row, avg_lp, offset, win_dur)
+                segments.extend(segs)
+                texts.extend(s["text"] for s in segs)
+        self.last_stats = stats
+        return {
+            "text": " ".join(t for t in texts if t),
+            "segments": segments,
+            "language": self.language,
+            "duration": duration,
+        }
+
+    def _parse_window(
+        self, tokens: np.ndarray, avg_logprob: float, offset: float, win_dur: float
+    ) -> List[Dict[str, Any]]:
+        """Timestamp-token grammar -> segment dicts on the file timeline."""
+        tok = self.tokenizer
+        eot = tok.eot
+
+        if not self.timestamps:
+            ids = [int(t) for t in tokens if int(t) != eot and not tok.is_timestamp(int(t))]
+            text = tok.decode(ids).strip()
+            if not text:
+                return []
+            return [{"start": round(offset, 3), "end": round(offset + win_dur, 3),
+                     "text": text, "confidence": avg_logprob}]
+
+        segs = []
+        cur_start: Optional[float] = None
+        cur_text: List[int] = []
+        for t in tokens:
+            t = int(t)
+            if t == eot:
+                break
+            if tok.is_timestamp(t):
+                ts = tok.timestamp_to_seconds(t)
+                if cur_start is not None and cur_text:
+                    segs.append((cur_start, ts, cur_text))
+                    cur_text = []
+                    cur_start = None
+                else:
+                    cur_start = ts
+            else:
+                cur_text.append(t)
+        if cur_start is not None and cur_text:
+            segs.append((cur_start, min(_WINDOW_S, win_dur), cur_text))
+
+        out = []
+        for s, e, ids in segs:
+            if s >= win_dur:
+                continue
+            text = tok.decode(ids).strip()
+            if not text:
+                continue
+            out.append({
+                "start": round(offset + s, 3),
+                "end": round(offset + min(e, win_dur), 3),
+                "text": text,
+                "confidence": avg_logprob,
+            })
+        return out
+
+
+class WhisperTranscriber:
+    """Reference-compatible transcriber on the PyTorch stack.
+
+    Same constructor as the JAX package's ``WhisperTranscriber`` without its
+    ``mesh`` (multi-GPU comes later) and with ``device``. ``word_timestamps``
+    defaults to False here because DTW word alignment is not ported yet.
+    """
+
+    MODEL_INFO = MODEL_INFO
+
+    def __init__(
+        self,
+        model_name: str = "large-v3-turbo",
+        language: str = "pt",
+        prompt: str = "",
+        task: str = "transcribe",
+        temperature: float = 0.0,
+        beam_size: int = 5,
+        lazy_load: bool = True,
+        weights_path: Optional[str] = None,
+        batch_size: int = 16,
+        word_timestamps: bool = False,
+        chunking: str = "batched",
+        max_decode_tokens: int = 224,
+        device: Optional[str] = None,
+    ) -> None:
+        self.model_name = model_name
+        self.language = language
+        self.prompt = prompt
+        self.task = task
+        self.temperature = temperature
+        self.beam_size = beam_size
+
+        if model_name not in self.MODEL_INFO and model_name in WHISPER_DIMS:
+            logger.info("Using non-standard model: %s", model_name)
+        elif model_name not in WHISPER_DIMS:
+            logger.warning("Unknown model: %s. Proceeding anyway.", model_name)
+        else:
+            info = self.MODEL_INFO[model_name]
+            logger.info("Whisper model: %s (%s params, ~%dGB device memory)",
+                        model_name, info["params"], info["vram_gb"])
+
+        self._backend = TorchWhisperBackend(
+            model_name=model_name if model_name in WHISPER_DIMS else "tiny",
+            language=language,
+            task=task,
+            temperature=temperature,
+            beam_size=beam_size,
+            prompt=prompt,
+            weights_path=weights_path,
+            batch_size=batch_size,
+            word_timestamps=word_timestamps,
+            chunking=chunking,
+            max_decode_tokens=max_decode_tokens,
+            device=device,
+        )
+        if not lazy_load:
+            self.load_model()
+
+    @classmethod
+    def from_config(cls, config, device: Optional[str] = None) -> "WhisperTranscriber":
+        """Build from a config exposing ``transcription`` and
+        ``lazy_load_models`` (this package's or the JAX package's)."""
+        tc = config.transcription
+        inst = cls(
+            model_name=tc.model,
+            language=tc.language,
+            prompt=tc.prompt or "",
+            task=tc.task,
+            temperature=tc.temperature,
+            beam_size=tc.beam_size,
+            lazy_load=True,
+            weights_path=tc.weights_path,
+            batch_size=tc.batch_size,
+            word_timestamps=tc.word_timestamps,
+            chunking=tc.chunking,
+            max_decode_tokens=tc.max_decode_tokens,
+            device=device,
+        )
+        backend = inst._backend
+        backend.no_speech_threshold = tc.no_speech_threshold
+        backend.logprob_threshold = tc.logprob_threshold
+        backend.compression_ratio_threshold = tc.compression_ratio_threshold
+        backend.patience = tc.patience
+        backend.kv_cache_dtype = getattr(tc, "kv_cache_dtype", "int8")
+        backend.compute_dtype = {"float16": "bfloat16"}.get(tc.compute_type, tc.compute_type)
+        if not config.lazy_load_models:
+            inst.load_model()
+        return inst
+
+    def is_loaded(self) -> bool:
+        return self._backend.params is not None
+
+    def load_model(self) -> None:
+        self._backend.load()
+
+    def unload_model(self) -> None:
+        if self.is_loaded():
+            self._backend.unload()
+            logger.info("Whisper model unloaded")
+
+    @retry_with_backoff(
+        config=RetryConfig(max_attempts=2, initial_delay_s=2.0),
+        exceptions=(RuntimeError,),
+        on_retry=_no_retry_unported,
+    )
+    def transcribe(self, input_wav: str) -> Dict[str, Any]:
+        logger.info("Transcribing: %s", input_wav)
+        try:
+            audio, sr = read_wav(input_wav)
+            result = self._backend.transcribe_array(audio, sr)
+        except RuntimeError:
+            raise
+        except Exception as exc:
+            raise TranscriptionError(
+                f"Transcription failed for: {input_wav}", details=str(exc)
+            )
+        logger.info(
+            "Transcription complete: %d segments, %d chars",
+            len(result["segments"]), len(result["text"]),
+        )
+        return result

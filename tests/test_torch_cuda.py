@@ -1,0 +1,144 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and skips without one (the decision is
+taken inside the ``cuda`` fixture, at run time). On a machine with the card
+run them without the repository's JAX test configuration::
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Shapes cover the ragged edges the main path never shows: sequence lengths
+that are not a tile multiple, one beam, head dim 32, partly masked context.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from modular_audio_pipeline_tpu_torch.ops import ancestor_attention as anc_ops
+from modular_audio_pipeline_tpu_torch.ops import attention as attn_ops
+
+# bf16: one ulp at |y| in [1, 2) is 7.8e-3; the kernels sum in f32 in another
+# order than the plain versions (and the flash kernel keeps f32
+# probabilities where the plain version rounds them), so a rounded value may
+# land on the neighbouring bf16 value. f32: fast exp and summation order.
+TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", [(1, 1, 1, 64), (2, 3, 129, 64), (1, 2, 1500, 32),
+                                   (1, 1, 300, 64)])
+def test_flash_kernel_matches_plain(cuda, shape, dtype):
+    q, k, v = (torch.randn(shape, generator=cuda, device="cuda").to(dtype) for _ in range(3))
+    before = attn_ops.flash_attention.launches
+    out = attn_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attn_ops.flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    err = (out.float() - attn_ops.attention_reference(q, k, v).float()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.randn((1, 2, 64, 64), generator=cuda, device="cuda")
+    with pytest.raises(ValueError):
+        attn_ops.flash_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
+    with pytest.raises(ValueError):
+        attn_ops.flash_attention(q.half(), q.half(), q.half())
+    w = torch.randn((1, 2, 64, 48), generator=cuda, device="cuda")
+    with pytest.raises(ValueError):
+        attn_ops.flash_attention(w, w, w)
+
+
+def _anc_case(g, q_dtype, cache_dtype, bw, kq, h, ctx, hd, n_valid):
+    dev = "cuda"
+    n_layers, layer, pos = 2, 1, n_valid - 1
+    bk = bw * kq
+    q = (torch.randn((bk, h, 1, hd), generator=g, device=dev) * hd ** -0.5).to(q_dtype)
+    if cache_dtype == torch.int8:
+        def codes(*s):
+            return torch.randint(-127, 128, s, generator=g, device=dev, dtype=torch.int8)
+
+        def scales(*s):
+            return torch.rand(s, generator=g, device=dev) * 0.02 + 0.001
+
+        cache = [codes(n_layers, bk, h, ctx, hd), codes(n_layers, bk, h, ctx, hd),
+                 scales(n_layers, bk, h, ctx), scales(n_layers, bk, h, ctx)]
+        new = [codes(bk, h, 1, hd), codes(bk, h, 1, hd), scales(bk, h, 1), scales(bk, h, 1)]
+    else:
+        cache = [torch.randn((n_layers, bk, h, ctx, hd), generator=g, device=dev)
+                 .to(cache_dtype) for _ in range(2)] + [None, None]
+        new = [torch.randn((bk, h, 1, hd), generator=g, device=dev).to(cache_dtype)
+               for _ in range(2)] + [None, None]
+    anc = torch.randint(0, kq, (bw, kq, ctx), generator=g, device=dev, dtype=torch.int32)
+    anc[:, :, pos] = torch.arange(kq, device=dev, dtype=torch.int32)
+    mask = torch.where(torch.arange(ctx, device=dev) < n_valid, 0.0, float("-inf"))
+    return q, cache, new, anc, mask, layer, pos
+
+
+@pytest.mark.parametrize("has_new", [False, True], ids=["cached", "new_rows"])
+@pytest.mark.parametrize("q_dtype, cache_dtype", [
+    (torch.bfloat16, torch.int8), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.int8), (torch.float32, torch.float32),
+], ids=["bf16_int8", "bf16_bf16", "f32_int8", "f32_f32"])
+@pytest.mark.parametrize("bw, kq, h, ctx, hd, n_valid", [
+    (2, 5, 3, 64, 64, 37), (3, 1, 2, 128, 32, 128), (1, 8, 4, 448, 64, 300),
+])
+def test_ancestry_kernel_matches_plain(cuda, q_dtype, cache_dtype, has_new,
+                                       bw, kq, h, ctx, hd, n_valid):
+    q, cache, new, anc, mask, layer, pos = _anc_case(
+        cuda, q_dtype, cache_dtype, bw, kq, h, ctx, hd, n_valid)
+    if not has_new:
+        new = [None] * 4
+    mine = [None if c is None else c.clone() for c in cache]
+    plain = [None if c is None else c.clone() for c in cache]
+    before = anc_ops.ancestor_attention.launches
+    y = anc_ops.ancestor_attention(q, *mine, layer, anc, mask, *new, pos if has_new else None)
+    y_ref = anc_ops.ancestor_attention_reference(
+        q, *plain, layer, anc, mask, *new, pos if has_new else None)
+    torch.cuda.synchronize()
+    assert anc_ops.ancestor_attention.launches == before + 1
+    assert y.shape == q.shape and y.dtype == q_dtype
+    err = (y.float() - y_ref.float()).abs().max().item()
+    assert err <= TOL[q_dtype], err
+    for a, b in zip(mine, plain):
+        if a is not None:
+            assert torch.equal(a, b)
+
+
+def _to_cuda(tree):
+    return {k: _to_cuda(v) if isinstance(v, dict) else v.cuda() for k, v in tree.items()}
+
+
+def test_decode_on_card_matches_cpu(cuda):
+    """test-tiny beam decode through both kernels gives the CPU port's
+    tokens (float32 weights, int8 KV cache)."""
+    from modular_audio_pipeline_tpu_torch.models.whisper.config import WHISPER_DIMS
+    from modular_audio_pipeline_tpu_torch.models.whisper.decode import (
+        DecodeOptions, decode_windows,
+    )
+    from modular_audio_pipeline_tpu_torch.models.whisper.model import init_params
+    from modular_audio_pipeline_tpu_torch.models.whisper.tokenizer import load_tokenizer
+
+    dims = WHISPER_DIMS["test-tiny"]
+    params = init_params(dims, torch.Generator().manual_seed(0), torch.float32)
+    mel = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((2, dims.n_mels, 3000)).astype(np.float32))
+    tok = load_tokenizer(None, dims.n_vocab)
+    opts = DecodeOptions(language="en", beam_size=5, max_tokens=32)
+    want = decode_windows(params, dims, tok, mel, opts)
+    gpu = _to_cuda(params)
+    launches = (attn_ops.flash_attention.launches, anc_ops.ancestor_attention.launches)
+    got = decode_windows(gpu, dims, tok, mel.cuda(), opts)
+    assert attn_ops.flash_attention.launches == launches[0] + dims.n_audio_layer
+    assert anc_ops.ancestor_attention.launches > launches[1]
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    np.testing.assert_allclose(got.sum_logprobs, want.sum_logprobs, rtol=0, atol=1e-3)
