@@ -19,15 +19,29 @@ Phases (any failure exits non-zero and prints no result line):
    shape (16 windows x 5 beams, 20 heads, ctx 448, hd 64), int8 and bf16
    caches, with this step's rows written at the last position: the output
    and the written cache are compared, and both are timed.
+3b. The weight-only int8 product kernel against its plain version at the
+   decode step's shapes (M = 80 rows; K x N of 1280 x 1280, 1280 x 5120,
+   5120 x 1280 and the logits head 1280 x 51968), at the cross K/V shape
+   (M = 24000, 1280 x 1280) and at a ragged shape (3 x 64 x 200), with the
+   kernel's, the plain version's and, as a yardstick the port never calls,
+   ``torch.matmul``'s time in bf16 on a weight dequantised beforehand.
 4. End to end: ``WhisperTranscriber("large-v3-turbo", weights_path="random:0",
    beam_size=5, max_decode_tokens=224, device="cuda")`` with the no-speech
    gate off transcribes 8 minutes of voiced audio (16 windows, one batch),
-   after one warm-up run. Both kernels' launch counts are reset just before
-   and read just after, and must be non-zero.
+   after one warm-up run. The kernels' launch counts are reset just before
+   and read just after; the flash and ancestry kernels' must be non-zero.
+4b. The same file through ``WhisperTranscriber.from_config`` with
+   ``compute_type="int8"`` and ``word_timestamps=True``: all three kernels
+   must launch, the int8 product at least 33 times per decode step, and
+   segments carry words inside the file. The seconds of the
+   word-alignment pass are logged.
 5. The shipped ``whisper-tiny-synth-proxy`` bundle transcribes two held-out
    synthetic sentences on the card, once through the kernels and once with
-   the model's attention calls bound to the plain versions; the agreement
-   is printed and the kernel path must yield segments.
+   the model's kernel calls bound to the plain versions; the agreement
+   is printed and the kernel path must yield segments. Then, on the same
+   bundle: the int8 decoder through its kernel against its plain version,
+   word timestamps inside their segments, the temperature ladder walked to
+   its last rung twice with equal results, and language detection.
 
 Float32 products run in full f32 (TF32 off for matmuls and cuDNN
 convolutions). The last lines are the card, the per-kernel JSON line and
@@ -80,6 +94,36 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fns, reps: int = 5) -> float:
+    """Mean device time of one call out of ``fns`` (a list of callables, run
+    in order), from replays of a CUDA graph that captured them: no host
+    time between the launches, so a kernel shorter than its wrapper's host
+    work is timed on the device alone."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * len(fns))
 
 
 def bound(bytes_moved: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
@@ -218,6 +262,78 @@ def phase_ancestry(torch):
     return result
 
 
+# -- phase 3b ----------------------------------------------------------------
+
+# (M, K, N): the decode step's projections and head, the cross K/V, a ragged case
+INT8_SHAPES = [(80, 1280, 1280), (80, 1280, 5120), (80, 5120, 1280), (80, 1280, 51968),
+               (24000, 1280, 1280), (3, 64, 200)]
+INT8_HEAD = (80, 1280, 51968)
+
+
+L2_BYTES = 50e6  # H100: weights re-read within this many bytes come from the cache
+
+
+def phase_int8(torch):
+    """Kernel 3 against its plain version. Both sum the same exact f32
+    products (bf16 x int8) in another order, so each sum may be off by
+    K * 2^-24 of the sum of its terms' magnitudes: the tolerance, per
+    element, is twice that, times the column's scale.
+
+    Times are device times from CUDA-graph replays (the decode step's
+    launches are shorter than their wrapper's host work), over enough
+    distinct copies of the weight to exceed the L2 cache: the decode loop
+    walks 158 MB of codes per step, so it finds each weight cold. The
+    eager time, host work included, is logged beside them."""
+    from modular_audio_pipeline_tpu_torch.ops.quant import int8_matmul, int8_matmul_reference
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    result, table = None, []
+    for m, k, n in INT8_SHAPES:
+        x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        wq = torch.randint(-127, 128, (k, n), generator=g, device="cuda", dtype=torch.int8)
+        ws = torch.rand((n,), generator=g, device="cuda") * 0.002 + 1e-4  # |w| <= ~0.25
+        out = int8_matmul(x, wq, ws)
+        ref = int8_matmul_reference(x, wq, ws)
+        torch.cuda.synchronize()
+        tol = 2 * k * 2.0 ** -24 * (x.float().abs() @ wq.float().abs()) * ws
+        diff = (out - ref).abs()
+        err, tol_max = diff.max().item(), tol.max().item()
+        ok = bool((diff <= tol).all()) and bool(torch.isfinite(out).all())
+        del ref, tol, diff, out
+        if not ok:
+            raise AssertionError(f"int8_matmul disagrees with its plain version at {(m, k, n)}")
+
+        copies = 1 if m > 1000 else min(64, int(L2_BYTES // (k * n)) + 2)
+        wqs = [wq] + [wq.clone() for _ in range(copies - 1)]
+        # dequantised beforehand, twice the bytes: the yardstick the port never calls
+        w_bf16 = [(w.float() * ws).to(torch.bfloat16) for w in wqs]
+        ms = graph_ms([lambda w=w: int8_matmul(x, w, ws) for w in wqs])
+        plain_ms = graph_ms([lambda w=w: int8_matmul_reference(x, w, ws) for w in wqs], reps=2)
+        lib_ms = graph_ms([lambda w=w: torch.matmul(x, w) for w in w_bf16])
+        eager_ms = time_ms(lambda: int8_matmul(x, wq, ws), 5 if m > 1000 else 50)
+        bytes_moved = k * n + m * k * x.element_size() + n * 4 + m * n * 4
+        bound_ms, bound_by = bound(bytes_moved, 2.0 * m * k * n)
+        log(f"int8_matmul M {m} K {k} N {n}: max_abs_err {err:.3e} (tol up to {tol_max:.3e}), "
+            f"kernel {ms:.4f} ms (eager, with its wrapper: {eager_ms:.4f} ms), "
+            f"plain {plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}), {copies} weight copies")
+        table.append({"m": m, "k": k, "n": n, "ms": ms, "eager_ms": eager_ms,
+                      "plain_ms": plain_ms, "bf16_matmul_ms": lib_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "max_abs_err": err})
+        if (m, k, n) == INT8_HEAD:
+            result = {
+                "name": "int8_matmul", "route": "cuda",
+                "source": "modular_audio_pipeline_tpu_torch/csrc/int8_matmul.cu",
+                "replaces": "modular_audio_pipeline_tpu/ops/quant.py:39",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms,
+            }
+        del x, wq, ws, wqs, w_bf16
+        torch.cuda.empty_cache()
+    log(json.dumps({"int8_matmul_shapes": table}))
+    return result
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 def bench_audio(seconds: float) -> np.ndarray:
@@ -234,15 +350,49 @@ def bench_audio(seconds: float) -> np.ndarray:
     return np.clip(out * 32768.0, -32768, 32767).astype(np.int16).astype(np.float32) / 32768.0
 
 
-def phase_end_to_end(torch, tmp: Path):
-    from modular_audio_pipeline_tpu_torch.audio_io import write_wav
+def _reset_launches():
     from modular_audio_pipeline_tpu_torch.ops.ancestor_attention import ancestor_attention
     from modular_audio_pipeline_tpu_torch.ops.attention import flash_attention
+    from modular_audio_pipeline_tpu_torch.ops.quant import int8_matmul
+
+    wrappers = {"flash_attention": flash_attention, "ancestor_attention": ancestor_attention,
+                "int8_matmul": int8_matmul}
+    for w in wrappers.values():
+        w.launches = 0
+    return wrappers
+
+
+def _timed_run(torch, tr, wav: Path, seconds: float, label: str):
+    """Warm-up run, then one run with every kernel's launch count set to 0
+    just before and read just after -> (result, wall seconds, launches)."""
+    t0 = time.perf_counter()
+    tr.transcribe(str(wav))
+    torch.cuda.synchronize()
+    log(f"{label}: warm-up run {time.perf_counter() - t0:.2f} s")
+
+    wrappers = _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tr.transcribe(str(wav))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    stats = tr._backend.last_stats
+    log(f"{label}: wall {wall:.3f} s, realtime x{seconds / wall:.1f}, "
+        f"segments {len(out['segments'])}, windows {stats['windows']}, "
+        f"decode tokens {stats['decode_tokens']}, launches {launches}")
+    if stats["windows"] != 16 or stats["decode_tokens"] <= 0:
+        raise AssertionError(f"{label}: unexpected decode workload {stats}")
+    for s in out["segments"]:
+        if not (0.0 <= s["start"] <= s["end"] <= seconds and np.isfinite(s["confidence"])
+                and isinstance(s["text"], str)):
+            raise AssertionError(f"{label}: malformed segment {s}")
+    return out, wall, launches
+
+
+def phase_end_to_end(torch, wav: Path, seconds: float):
     from modular_audio_pipeline_tpu_torch.transcriber import WhisperTranscriber
 
-    seconds = 8 * 60.0
-    wav = tmp / "bench.wav"
-    write_wav(str(wav), bench_audio(seconds), SR)
     t0 = time.perf_counter()
     tr = WhisperTranscriber(
         "large-v3-turbo", language="en", weights_path="random:0", beam_size=5,
@@ -251,20 +401,7 @@ def phase_end_to_end(torch, tmp: Path):
     tr._backend.no_speech_threshold = None  # as bench.py: every window is parsed
     torch.cuda.synchronize()
     log(f"e2e: random large-v3-turbo loaded in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    tr.transcribe(str(wav))
-    torch.cuda.synchronize()
-    log(f"e2e: warm-up run {time.perf_counter() - t0:.2f} s")
-
-    flash_attention.launches = 0
-    ancestor_attention.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = tr.transcribe(str(wav))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.launches,
-                "ancestor_attention": ancestor_attention.launches}
+    out, wall, launches = _timed_run(torch, tr, wav, seconds, "e2e")
 
     # the encoder's share: encoder + cross K/V of one 16-window batch
     from modular_audio_pipeline_tpu_torch.models.whisper.decode import encode_audio_kv
@@ -272,26 +409,76 @@ def phase_end_to_end(torch, tmp: Path):
     b = tr._backend
     mel = torch.randn((16, b.dims.n_mels, 3000), device="cuda")
     encode_s = time_ms(lambda: encode_audio_kv(b.params, b.dims, mel), 2, warmup=1) / 1e3
-    stats = tr._backend.last_stats
-    segs = out["segments"]
-    log(f"e2e: wall {wall:.3f} s, realtime x{seconds / wall:.1f}, segments {len(segs)}, "
-        f"windows {stats['windows']}, decode tokens {stats['decode_tokens']}, "
-        f"launches {launches}; encoder + cross K/V {encode_s:.3f} s of it")
-    if stats["windows"] != 16 or stats["decode_tokens"] <= 0:
-        raise AssertionError(f"unexpected decode workload {stats}")
+    log(f"e2e: encoder + cross K/V {encode_s:.3f} s of the wall time")
     if launches["flash_attention"] != 32 or launches["ancestor_attention"] <= 0:
         raise AssertionError(f"main path skipped a kernel: {launches}")
-    for s in segs:
-        if not (0.0 <= s["start"] <= s["end"] <= seconds and np.isfinite(s["confidence"])
-                and isinstance(s["text"], str)):
-            raise AssertionError(f"malformed segment {s}")
-    busy, top = device_breakdown(torch, lambda: tr.transcribe(str(wav)))
-    return launches, {"wall_s": wall, "realtime_x": seconds / wall, "segments": len(segs),
+    if launches["int8_matmul"] != 0:
+        raise AssertionError(f"the bf16 path launched the int8 kernel: {launches}")
+    busy, top = device_breakdown(torch, lambda: tr.transcribe(str(wav)), "e2e")
+    stats = b.last_stats
+    return launches, {"wall_s": wall, "realtime_x": seconds / wall,
+                      "segments": len(out["segments"]),
                       "decode_tokens": stats["decode_tokens"], "encode_s": encode_s,
                       "device_busy_share": busy, "top_kernels_ms": top}
 
 
-def device_breakdown(torch, fn, top: int = 8):
+def phase_end_to_end_int8(torch, wav: Path, seconds: float):
+    """This slice's path at full width: the int8 decoder and DTW words,
+    built the way a configuration file builds it."""
+    from modular_audio_pipeline_tpu_torch.config import PipelineConfig
+    from modular_audio_pipeline_tpu_torch.transcriber import WhisperTranscriber
+
+    cfg = PipelineConfig(lazy_load_models=False)
+    tc = cfg.transcription
+    tc.model, tc.language, tc.weights_path = "large-v3-turbo", "en", "random:0"
+    tc.beam_size, tc.max_decode_tokens, tc.batch_size = 5, 224, 16
+    tc.compute_type, tc.word_timestamps = "int8", True
+    tc.no_speech_threshold = None  # every window is parsed
+    t0 = time.perf_counter()
+    tr = WhisperTranscriber.from_config(cfg, device="cuda")
+    torch.cuda.synchronize()
+    log(f"e2e int8: random large-v3-turbo loaded and quantised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    dec = tr._backend.params["decoder"]
+    if dec["logits_wq"].dtype != torch.int8 or "q_w" in dec["blocks"]["attn"]:
+        raise AssertionError("compute_type=int8 left the decoder unquantised")
+    out, wall, launches = _timed_run(torch, tr, wav, seconds, "e2e int8")
+    stats = tr._backend.last_stats
+    log(f"e2e int8: word alignment {stats['align_s']:.3f} s of the wall time")
+
+    steps = launches["ancestor_attention"] // tr._backend.dims.n_text_layer
+    if launches["flash_attention"] != 32 or steps <= 0:
+        raise AssertionError(f"the int8 path skipped a kernel: {launches}")
+    if launches["int8_matmul"] < 33 * steps:
+        raise AssertionError(f"fewer than 33 int8 launches per decode step: {launches}, "
+                             f"{steps} steps")
+    # Random weights attend nowhere in particular, so the DTW may place no
+    # word's midpoint inside some segment, which then carries none (as in
+    # the JAX package): every segment has text, the words that are attached
+    # are well formed, and the batch as a whole carries words.
+    n_words = with_words = 0
+    for s in out["segments"]:
+        if not s["text"]:
+            raise AssertionError(f"e2e int8: segment without text: {s}")
+        words = s.get("words", [])
+        for w in words:
+            if not (0.0 <= w["start"] <= w["end"] <= seconds and w["word"]):
+                raise AssertionError(f"e2e int8: malformed word {w}")
+        n_words += len(words)
+        with_words += bool(words)
+    log(f"e2e int8: {with_words} of {len(out['segments'])} segments carry words "
+        f"({n_words} words)")
+    if not with_words:
+        raise AssertionError("e2e int8: no segment carries words")
+    busy, top = device_breakdown(torch, lambda: tr.transcribe(str(wav)), "e2e int8")
+    return launches, {"wall_s": wall, "realtime_x": seconds / wall,
+                      "segments": len(out["segments"]), "words": n_words,
+                      "decode_tokens": stats["decode_tokens"], "decode_steps": steps,
+                      "align_s": stats["align_s"], "device_busy_share": busy,
+                      "top_kernels_ms": top}
+
+
+def device_breakdown(torch, fn, label: str, top: int = 8):
     """Device busy share and the kernels with the most device time over one
     run of ``fn``, from torch.profiler. The profiler slows the host, so the
     busy share it gives is a lower bound; None when it saw no device time."""
@@ -311,7 +498,7 @@ def device_breakdown(torch, fn, top: int = 8):
     busy_ms = sum(r[1] for r in rows)
     for name, ms, n in rows[:top]:
         log(f"  device {ms:9.1f} ms  x{n:<6d} {name[:90]}")
-    log(f"e2e (profiled): wall {wall:.3f} s, device busy {busy_ms / 1e3:.3f} s")
+    log(f"{label} (profiled): wall {wall:.3f} s, device busy {busy_ms / 1e3:.3f} s")
     if busy_ms <= 0:
         return None, []
     return busy_ms / 1e3 / wall, [[name[:90], ms, n] for name, ms, n in rows[:top]]
@@ -355,22 +542,34 @@ def _synth_sentence(words, rng) -> np.ndarray:
 
 
 @contextlib.contextmanager
-def plain_attention():
-    """Bind the model's two kernel calls to their plain versions."""
+def plain_kernels():
+    """Bind the model's three kernel calls to their plain versions."""
     from modular_audio_pipeline_tpu_torch.models.whisper import model
     from modular_audio_pipeline_tpu_torch.ops.ancestor_attention import ancestor_attention_reference
     from modular_audio_pipeline_tpu_torch.ops.attention import attention_reference
+    from modular_audio_pipeline_tpu_torch.ops.quant import int8_matmul_reference
 
-    saved = model.flash_attention, model.ancestor_attention
+    saved = model.flash_attention, model.ancestor_attention, model.int8_matmul
     model.flash_attention, model.ancestor_attention = attention_reference, ancestor_attention_reference
+    model.int8_matmul = int8_matmul_reference
     try:
         yield
     finally:
-        model.flash_attention, model.ancestor_attention = saved
+        model.flash_attention, model.ancestor_attention, model.int8_matmul = saved
+
+
+def _agreement(kernel, plain) -> float:
+    """Share of segments (text, start, end) equal between two runs."""
+    key = lambda s: (s["text"], s["start"], s["end"])  # noqa: E731
+    pairs = [(key(a), key(b)) for ka, kb in zip(kernel, plain) for a, b in zip(ka, kb)]
+    n = max(sum(len(s) for s in kernel), sum(len(s) for s in plain))
+    return sum(a == b for a, b in pairs) / max(n, 1)
 
 
 def phase_proxy(torch, tmp: Path):
+    from modular_audio_pipeline_tpu_torch import transcriber as transcriber_mod
     from modular_audio_pipeline_tpu_torch.audio_io import write_wav
+    from modular_audio_pipeline_tpu_torch.models.whisper.tokenizer import LANGUAGES
     from modular_audio_pipeline_tpu_torch.transcriber import WhisperTranscriber
 
     rng = np.random.default_rng(500_000)  # the proxy's held-out stream
@@ -382,15 +581,17 @@ def phase_proxy(torch, tmp: Path):
         write_wav(str(path), _synth_sentence(list(words), rng), SR)
         paths.append((str(path), " ".join(_VOCAB[w] for w in words)))
 
-    tr = WhisperTranscriber("tiny", language="en", beam_size=5, weights_path=str(PROXY),
-                            max_decode_tokens=128, device="cuda")
+    def proxy(**kw):
+        kw.setdefault("language", "en")
+        kw.setdefault("word_timestamps", False)
+        return WhisperTranscriber("tiny", beam_size=5, weights_path=str(PROXY),
+                                  max_decode_tokens=128, device="cuda", **kw)
+
+    tr = proxy()
     kernel = [tr.transcribe(p)["segments"] for p, _ in paths]
-    with plain_attention():
+    with plain_kernels():
         plain = [tr.transcribe(p)["segments"] for p, _ in paths]
-    key = lambda s: (s["text"], s["start"], s["end"])  # noqa: E731
-    pairs = [(key(a), key(b)) for ka, kb in zip(kernel, plain) for a, b in zip(ka, kb)]
-    n = max(sum(len(s) for s in kernel), sum(len(s) for s in plain))
-    agree = sum(a == b for a, b in pairs) / max(n, 1)
+    agree = _agreement(kernel, plain)
     for (path, text), segs in zip(paths, kernel):
         log(f"proxy: ref '{text}'")
         log(f"proxy: got '{' '.join(s['text'] for s in segs)}'")
@@ -398,7 +599,74 @@ def phase_proxy(torch, tmp: Path):
         f"({sum(len(s) for s in kernel)} vs {sum(len(s) for s in plain)} segments)")
     if not all(kernel):
         raise AssertionError("the kernel path produced no segments on the proxy bundle")
-    return agree
+
+    # the int8 decoder through its kernel, then through its plain version
+    tr8 = proxy()
+    tr8._backend.compute_dtype = "int8"
+    wrappers = _reset_launches()
+    kernel8 = [tr8.transcribe(p)["segments"] for p, _ in paths]
+    n_int8 = wrappers["int8_matmul"].launches
+    with plain_kernels():
+        plain8 = [tr8.transcribe(p)["segments"] for p, _ in paths]
+    agree8 = _agreement(kernel8, plain8)
+    log(f"proxy int8: got '{' '.join(s['text'] for s in kernel8[0])}'")
+    log(f"proxy int8: segment agreement kernel vs plain {agree8:.3f}, agreement with the "
+        f"bf16 decoder {_agreement(kernel8, kernel):.3f}, int8 launches {n_int8}")
+    if not all(kernel8) or n_int8 <= 0:
+        raise AssertionError("the int8 kernel path produced no segments on the proxy bundle")
+
+    # DTW words lie inside their segments
+    trw = proxy(word_timestamps=True)
+    n_words = 0
+    for p, _ in paths:
+        segs = trw.transcribe(p)["segments"]
+        if not segs:
+            raise AssertionError("word_timestamps=True produced no segments")
+        for s in segs:
+            words = s.get("words")
+            if not words:
+                raise AssertionError(f"segment without words: {s}")
+            for w in words:
+                if not s["start"] <= w["start"] <= w["end"] <= s["end"]:
+                    raise AssertionError(f"word {w} outside its segment {s['start']}-{s['end']}")
+            n_words += len(words)
+    log(f"proxy words: {n_words} words inside their segments; first segment "
+        f"{[(w['word'], w['start'], w['end']) for w in segs[0]['words'][:4]]}")
+
+    # the temperature ladder: no decode reaches an average log-probability
+    # of 10, so every window walks to the last rung; twice, with equal results
+    trl = proxy()
+    trl._backend.logprob_threshold = 10.0
+    trl._backend.no_speech_threshold = None
+    rungs = []
+    real_decode = transcriber_mod.decode_windows
+
+    def spy(params, dims, tok, mel, opts, rng=None, audio_kv=None):
+        rungs.append(opts.temperature)
+        return real_decode(params, dims, tok, mel, opts, rng=rng, audio_kv=audio_kv)
+
+    transcriber_mod.decode_windows = spy
+    try:
+        first = [trl.transcribe(p) for p, _ in paths]
+        walked = list(rungs)
+        second = [trl.transcribe(p) for p, _ in paths]
+    finally:
+        transcriber_mod.decode_windows = real_decode
+    log(f"proxy ladder: temperatures {walked}; last-rung text '{first[0]['text'][:80]}'")
+    if walked != [0.0, 0.2, 0.4, 0.6, 0.8, 1.0] * 2:
+        raise AssertionError(f"the ladder did not walk to its last rung: {walked}")
+    if not all(r["segments"] for r in first):
+        raise AssertionError("the ladder's last rung returned no segments")
+    if first != second:
+        raise AssertionError("the ladder is not reproducible: two runs differ")
+
+    # language detection returns a code the tokenizer knows
+    lang = proxy(language="auto").transcribe(paths[0][0])["language"]
+    log(f"proxy language: detected '{lang}'")
+    if lang not in LANGUAGES:
+        raise AssertionError(f"detected language {lang!r} is not a language code")
+    return {"segment_agreement": agree, "int8_segment_agreement": agree8, "words": n_words,
+            "ladder_rungs": walked[:6], "language": lang}
 
 
 def main() -> int:
@@ -431,18 +699,34 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     t0 = time.perf_counter()
-    kernels = [phase_flash(torch), phase_ancestry(torch)]
-    log(f"phases 2-3 done in {time.perf_counter() - t0:.1f} s")
+    kernels = [phase_flash(torch), phase_ancestry(torch), phase_int8(torch)]
+    log(f"phases 2-3b done in {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as d:
+        from modular_audio_pipeline_tpu_torch.audio_io import write_wav
+
+        seconds = 8 * 60.0
+        wav = Path(d) / "bench.wav"
+        write_wav(str(wav), bench_audio(seconds), SR)
         t0 = time.perf_counter()
-        launches, e2e = phase_end_to_end(torch, Path(d))
+        launches, e2e = phase_end_to_end(torch, wav, seconds)
+        torch.cuda.empty_cache()
         log(f"phase 4 done in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        agree = phase_proxy(torch, Path(d))
+        launches_int8, e2e_int8 = phase_end_to_end_int8(torch, wav, seconds)
+        torch.cuda.empty_cache()
+        log(f"phase 4b done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        proxy = phase_proxy(torch, Path(d))
         log(f"phase 5 done in {time.perf_counter() - t0:.1f} s")
+    # each kernel's count from the path that brought it: phase 4 for the
+    # flash and ancestry kernels, phase 4b (which runs all three) for int8
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-    log(json.dumps({"end_to_end": e2e, "proxy_segment_agreement": agree}))
+        name = k["name"]
+        k["launches"] = launches_int8[name] if name == "int8_matmul" else launches[name]
+        if k["launches"] <= 0 or launches_int8[name] <= 0:
+            raise AssertionError(f"{name} was not launched on its main path")
+    log(json.dumps({"end_to_end": e2e, "end_to_end_int8": e2e_int8,
+                    "launches_bf16_path": launches, "proxy": proxy}))
 
     print(name_power)
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,9 @@ against it on the same inputs and weights. It imports torch and numpy,
 never jax and nothing of the JAX package. Ported so far: Whisper
 transcription over 30 s windows (log-mel, encoder with a hand-written
 flash-attention kernel, beam decode with a hand-written ancestry-attention
-kernel over an int8 KV cache, segment timestamps).
+kernel over an int8 KV cache, segment and DTW word timestamps, the
+temperature-fallback ladder, language detection, and a weight-only int8
+decoder through a hand-written int8 product kernel).
 
 Example::
 

@@ -20,7 +20,7 @@ class TranscriptionConfig:
     """Whisper decoding settings."""
 
     model: str = "large-v3"
-    compute_type: str = "bfloat16"  # "bfloat16" | "float32" ("int8" not ported)
+    compute_type: str = "bfloat16"  # "bfloat16" | "float32" | "int8" (weight-only decoder)
     language: str = "pt"
     task: str = "transcribe"
     temperature: float = 0.0
@@ -29,12 +29,12 @@ class TranscriptionConfig:
     batch_size: int = 16  # 30 s windows decoded together
     weights_path: Optional[str] = None  # converted checkpoint dir or "random:<seed>"
     max_decode_tokens: int = 224  # decode-loop bound per 30 s window
-    word_timestamps: bool = False  # DTW word alignment: not ported yet
+    word_timestamps: bool = True  # cross-attention DTW word alignment
     chunking: str = "batched"  # "sequential" (seek loop): not ported yet
     # Whisper quality gates: a window is dropped as non-speech when
     # no_speech_prob exceeds no_speech_threshold AND avg_logprob is below
     # logprob_threshold; windows failing the logprob/compression gates
-    # would retry up the temperature ladder.
+    # retry up the temperature ladder.
     no_speech_threshold: Optional[float] = 0.6
     logprob_threshold: Optional[float] = -1.0
     compression_ratio_threshold: Optional[float] = 2.4

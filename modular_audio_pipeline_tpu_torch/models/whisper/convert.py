@@ -72,7 +72,9 @@ def params_from_numpy(
     """Nested numpy tree (``params.npz`` or ``np.asarray`` over a JAX tree)
     -> the same tree of tensors on ``device``. Floating leaves become
     ``dtype`` (one round-to-nearest-even cast, as ``ml_dtypes`` does for
-    the JAX loader); integer leaves keep their type."""
+    the JAX loader), except the ``*_ws`` scales of a quantised tree
+    (``ops/quant.quantize_decoder``), which stay f32 as the JAX tree keeps
+    them; integer leaves (the int8 codes) keep their type."""
     out: Dict[str, Any] = {}
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -83,6 +85,6 @@ def params_from_numpy(
             arr = arr.astype(np.float32)  # e.g. ml_dtypes.bfloat16 from a JAX tree
         t = torch.from_numpy(arr)
         if t.is_floating_point():
-            t = t.to(dtype)
+            t = t.float() if k.endswith("_ws") else t.to(dtype)
         out[k] = t.to(device)
     return out

@@ -14,6 +14,11 @@ package's semantics:
   beam search with patience, and ancestry-indexed attention that never
   permutes the KV cache (``ancestry=True``).
 
+Sampling at ``temperature > 0`` (the rungs of the transcriber's fallback
+ladder) draws from an explicit ``torch.Generator`` on the tensors' device,
+where the JAX package splits a PRNG key: the two draw different numbers,
+so sampled tokens are reproducible per seed, not equal across packages.
+
 Where the JAX package selects rows with one-hot "exact einsums" (a TPU
 matmul-precision workaround), the port gathers with integer indices,
 which is exact by construction. Top-k selection breaks ties toward the
@@ -32,18 +37,14 @@ import torch.nn.functional as F
 
 from .config import WhisperDims
 from .model import KVCache, _quantize_rows, cross_kv, decoder_forward, encoder_forward
-from .tokenizer import WhisperTokenizer
+from .tokenizer import LANGUAGES, WhisperTokenizer
 
 __all__ = [
     "DecodeOptions", "DecodeResult", "decode_windows", "finalize_decode",
-    "encode_audio_kv", "build_initial_tokens",
+    "encode_audio_kv", "build_initial_tokens", "detect_language",
 ]
 
 _NEG_INF = -1e9
-
-# Options of the JAX package that this port does not run yet (ROADMAP.md §A).
-_SAMPLING_TODO = ("temperature > 0 sampling (the temperature-fallback ladder) is "
-                  "not ported yet: ROADMAP.md §A, next slices, item 'temperature ladder'")
 
 
 @dataclass(frozen=True)
@@ -251,14 +252,22 @@ def _greedy_prefill(params, dims, xa_k, xa_v, initial_tokens, sot_index, o, ctx0
 
 
 def _greedy_stage(params, dims, xa_k, xa_v, st, suppress, blank, o, stage_end):
-    """Greedy decode from ``st['i']`` to ``stage_end`` tokens (in place)."""
-    eot, ts_begin = o["eot"], o["ts_begin"]
+    """Greedy or sampling decode from ``st['i']`` to ``stage_end`` tokens
+    (in place). At ``temperature > 0`` the next token is drawn from
+    ``softmax(lp / temperature)`` with ``o['rng']``; the summed
+    log-probability still reads the unscaled ``lp``."""
+    eot, ts_begin, temperature = o["eot"], o["ts_begin"], o["temperature"]
     while st["i"] < stage_end and not bool(st["done"].all()):
         i = st["i"]
         lp = _filtered_logprobs(st["prev_logits"], i, st["last"], st["penult"],
                                 st["max_ts"], suppress, blank, o)
         done = st["done"]
-        next_tok = torch.where(done, eot, lp.argmax(dim=-1))  # first max, as jnp.argmax
+        if temperature > 0:
+            drawn = torch.multinomial(torch.softmax(lp / temperature, dim=-1), 1,
+                                      generator=o["rng"])[:, 0]
+        else:
+            drawn = lp.argmax(dim=-1)  # first max, as jnp.argmax
+        next_tok = torch.where(done, eot, drawn)
         tok_lp = lp.gather(1, next_tok[:, None])[:, 0]
         st["sum_lp"] = st["sum_lp"] + torch.where(done, 0.0, tok_lp)
         st["out_tokens"][:, i] = next_tok
@@ -418,10 +427,9 @@ def build_initial_tokens(tokenizer: WhisperTokenizer, opts: DecodeOptions
     return initial, len(initial) - len(sot_seq)
 
 
-def _decode_pending(params, dims, tokenizer, mel, opts, audio_kv=None) -> Dict[str, Any]:
+def _decode_pending(params, dims, tokenizer, mel, opts, rng=None, audio_kv=None
+                    ) -> Dict[str, Any]:
     """Encode + decode one batch; returns device tensors for finalize_decode."""
-    if opts.temperature > 0:
-        raise NotImplementedError(_SAMPLING_TODO)
     xa_k, xa_v = audio_kv if audio_kv is not None else encode_audio_kv(params, dims, mel)
     b = (xa_k[0] if isinstance(xa_k, tuple) else xa_k).shape[1]
     dev = (xa_k[0] if isinstance(xa_k, tuple) else xa_k).device
@@ -445,8 +453,11 @@ def _decode_pending(params, dims, tokenizer, mel, opts, audio_kv=None) -> Dict[s
         "pool_size": max(1, int(round(opts.beam_size * (opts.patience or 1.0)))),
         "kv_int8": opts.kv_int8,
         "ancestry": opts.ancestry,
+        "temperature": float(opts.temperature),
     }
-    beam = opts.beam_size > 1
+    beam = opts.beam_size > 1 and opts.temperature == 0.0  # sampling is per window, no beams
+    if opts.temperature > 0:
+        o["rng"] = rng if rng is not None else torch.Generator(device=dev).manual_seed(0)
     stages = _stage_bounds(len(initial), opts.max_tokens, dims.n_text_ctx)
     rows = b * opts.beam_size if beam else b
     init = torch.tensor(initial, dtype=torch.int64, device=dev)[None].expand(rows, -1)
@@ -519,6 +530,28 @@ def finalize_decode(pending: Dict[str, Any]) -> DecodeResult:
 
 def decode_windows(params, dims: WhisperDims, tokenizer: WhisperTokenizer,
                    mel: Optional[torch.Tensor], opts: DecodeOptions,
+                   rng: Optional[torch.Generator] = None,
                    audio_kv: Optional[Tuple[Any, Any]] = None) -> DecodeResult:
-    """Encode + decode one batch of 30 s mel windows."""
-    return finalize_decode(_decode_pending(params, dims, tokenizer, mel, opts, audio_kv))
+    """Encode + decode one batch of 30 s mel windows. ``rng`` (a generator
+    on the tensors' device; seed 0 when omitted) feeds the sampling at
+    ``opts.temperature > 0``; ``audio_kv`` reuses an
+    :func:`encode_audio_kv` result instead of encoding ``mel``."""
+    return finalize_decode(_decode_pending(params, dims, tokenizer, mel, opts, rng, audio_kv))
+
+
+def detect_language(params, dims: WhisperDims, tokenizer: WhisperTokenizer,
+                    mel: torch.Tensor) -> Tuple[str, Dict[str, float]]:
+    """Single-step language ID: the distribution over the language tokens
+    after SOT, averaged over the batch ``mel [B, n_mels, 3000]``.
+    Returns ``(language_code, {code: probability})``."""
+    xa_k, xa_v = encode_audio_kv(params, dims, mel)
+    b = mel.shape[0]
+    sot = torch.full((b, 1), tokenizer.sot, dtype=torch.int64, device=mel.device)
+    cache = KVCache.zeros(dims, b, params["decoder"]["tok_emb"].dtype, ctx=8, device=mel.device)
+    logits, _ = decoder_forward(params, dims, sot, xa_k, xa_v, cache)
+    n_lang = tokenizer.special.n_languages
+    start = tokenizer.special.language_start
+    probs = torch.softmax(logits[:, 0, start : start + n_lang].float(), dim=-1)
+    probs = probs.cpu().numpy().mean(axis=0)
+    best = int(np.argmax(probs))
+    return LANGUAGES[best], {LANGUAGES[i]: float(probs[i]) for i in range(n_lang)}

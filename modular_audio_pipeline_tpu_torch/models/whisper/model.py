@@ -10,8 +10,10 @@ run in the parameters' type, as the JAX path rounds them.
 The encoder's self-attention is the flash-attention kernel
 (``ops/attention.py``); the beam decode step's self-attention is the
 ancestry-attention kernel (``ops/ancestor_attention.py``), which writes
-this step's rows into the cache in place. Both take their plain versions
-for tensors on the CPU.
+this step's rows into the cache in place. With a quantised tree
+(``ops/quant.quantize_decoder``) the decoder's projections, the cross K/V
+and the logits run through the weight-only int8 kernel (``ops/quant.py``).
+All three take their plain versions for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 
 from ...ops.ancestor_attention import ancestor_attention
 from ...ops.attention import flash_attention
+from ...ops.quant import int8_matmul
 from .config import WhisperDims
 
 __all__ = [
@@ -68,6 +71,20 @@ def _linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torc
     x2 = x.reshape(-1, x.shape[-1])
     y = torch.addmm(b, x2, w) if b is not None else x2 @ w
     return y.reshape(x.shape[:-1] + (w.shape[1],))
+
+
+def _proj(y: torch.Tensor, mod: Dict[str, Any], name: str) -> torch.Tensor:
+    """Projection that dispatches on quantisation: ``name_w`` (the
+    parameters' type) or ``name_wq``/``name_ws`` (weight-only int8, f32
+    out; the bias joins in f32 before the one rounding to y's type)."""
+    wq = mod.get(f"{name}_wq")
+    bias = mod.get(f"{name}_b")
+    if wq is None:
+        return _linear(y, mod[f"{name}_w"], bias)
+    out = int8_matmul(y, wq, mod[f"{name}_ws"])  # a fresh f32 tensor
+    if bias is not None:
+        out.add_(bias)  # the bias is exact in f32: an f32 sum, in place
+    return out.to(y.dtype)
 
 
 def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -197,27 +214,36 @@ def cross_kv(params: Params, dims: WhisperDims, xa: torch.Tensor
     ks, vs = [], []
     for l in range(dims.n_text_layer):
         p = _layer(blocks, l)["cross"]
-        ks.append(_split_heads(_linear(xa, p["k_w"], None), h))
-        vs.append(_split_heads(_linear(xa, p["v_w"], p["v_b"]), h))
+        ks.append(_split_heads(_proj(xa, p, "k"), h))
+        vs.append(_split_heads(_proj(xa, p, "v"), h))
     return torch.stack(ks), torch.stack(vs)
 
 
-def _cross_attention(qx: torch.Tensor, xk, xv, dtype) -> torch.Tensor:
-    """Attention of the decoder queries over one layer's audio K/V.
+def _cross_attention(qx: torch.Tensor, xk, xv, dtype, return_probs: bool = False):
+    """Attention of the decoder queries over one layer's audio K/V ->
+    ``(y, probs)``.
 
     With a beam-expanded token batch (B*K rows against B windows) the
     audio K/V is shared across each window's beams by a grouped product
     instead of being repeated. ``xk``/``xv`` are either tensors or int8
     ``(codes, scales)`` pairs, whose scales fold into the scores after QK
-    and into the probabilities before PV.
+    and into the probabilities before PV. ``return_probs`` (unquantised
+    K/V, one query row per window row) also returns the f32 softmax rounded
+    to float16, ``[B, H, S, T]``, for the word alignment: post-softmax
+    values in [0, 1] that are standardised per head downstream, where
+    bf16's 8 mantissa bits moved DTW paths; otherwise ``probs`` is None.
     """
     quant = isinstance(xk, tuple)
     kb = (xk[0] if quant else xk).shape[0]
     groups = qx.shape[0] // kb
     bq, h, s, hd = qx.shape
+    if return_probs and (quant or groups != 1):
+        raise ValueError("cross-attention probabilities need unquantised audio K/V "
+                         "and one token row per window")
     # [kb*G, H, S, hd] -> [kb, H, G*S, hd]: each window's beams become rows
     # of one product with that window's K/V (no broadcast copy of K/V).
     qx = qx.reshape(kb, groups, h, s, hd).transpose(1, 2).reshape(kb, h, groups * s, hd)
+    out_probs = None
     if quant:
         (xk_q, xk_s), (xv_q, xv_s) = xk, xv
         qxs = (qx * hd ** -0.5).to(dtype)
@@ -227,10 +253,12 @@ def _cross_attention(qx: torch.Tensor, xk, xv, dtype) -> torch.Tensor:
     else:
         scale = hd ** -0.25
         logits = torch.matmul((qx * scale).float(), (xk * scale).float().transpose(-1, -2))
-        probs = torch.softmax(logits, dim=-1).to(dtype)
-        y = torch.matmul(probs.float(), xv.float())
+        probs = torch.softmax(logits, dim=-1)
+        y = torch.matmul(probs.to(dtype).float(), xv.float())
+        if return_probs:
+            out_probs = probs.to(torch.float16)
     y = y.to(dtype).reshape(kb, h, groups, s, hd).transpose(1, 2)
-    return y.reshape(bq, h, s, hd)
+    return y.reshape(bq, h, s, hd), out_probs
 
 
 def decoder_forward(
@@ -241,13 +269,19 @@ def decoder_forward(
     xa_v,
     cache: KVCache,
     anc: Optional[torch.Tensor] = None,
+    return_cross_probs: bool = False,
+    skip_logits: bool = False,
 ):
     """Run ``S`` decoder positions starting at ``cache.pos``.
 
     Writes the new self-attention K/V into ``cache`` in place, advances
-    ``cache.pos`` and returns ``(logits [B, S, n_vocab] f32, cache)``. Used
-    with S>1 for the prompt and S=1 for decode steps. ``xa_k``/``xa_v`` are
+    ``cache.pos`` and returns ``(logits [B, S, n_vocab] f32, cache[,
+    cross_probs [L, B, H, S, T_audio] f16])``. Used with S>1 for the prompt
+    and teacher forcing and S=1 for decode steps. ``xa_k``/``xa_v`` are
     ``[L, B_audio, H, T, hd]`` tensors or int8 ``(codes, scales)`` pairs.
+    ``skip_logits`` skips the vocabulary product and returns ``None``
+    logits (the alignment pass reads only the cross-attention
+    probabilities, which ``return_cross_probs`` adds to the result).
 
     ``anc`` (decode steps only, S == 1) enables ancestry-indexed beam
     attention: an int32 ``[BW, K, ctx]`` table where ``anc[b, k, p] == j``
@@ -270,13 +304,14 @@ def decoder_forward(
     self_mask = torch.where(k_pos <= q_pos, 0.0, float("-inf")).float()  # [S, ctx]
 
     quant = cache.k.dtype == torch.int8
+    cross_probs = []
     for l in range(dims.n_text_layer):
         p = _layer(dec["blocks"], l)
         resid = x
         y = _layer_norm(x, p["attn_ln"]["g"], p["attn_ln"]["b"])
-        q = _split_heads(_linear(y, p["attn"]["q_w"], p["attn"]["q_b"]), h)
-        k_new = _split_heads(_linear(y, p["attn"]["k_w"], None), h)
-        v_new = _split_heads(_linear(y, p["attn"]["v_w"], p["attn"]["v_b"]), h)
+        q = _split_heads(_proj(y, p["attn"], "q"), h)
+        k_new = _split_heads(_proj(y, p["attn"], "k"), h)
+        v_new = _split_heads(_proj(y, p["attn"], "v"), h)
         hd = q.shape[-1]
 
         if anc is not None:
@@ -311,28 +346,36 @@ def decoder_forward(
             cache.k[l, :, :, pos0 : pos0 + s] = k_new
             cache.v[l, :, :, pos0 : pos0 + s] = v_new
             y = _attention(q, cache.k[l], cache.v[l], self_mask)
-        x = resid + _linear(_merge_heads(y), p["attn"]["o_w"], p["attn"]["o_b"])
+        x = resid + _proj(_merge_heads(y), p["attn"], "o")
 
         resid = x
         y = _layer_norm(x, p["cross_ln"]["g"], p["cross_ln"]["b"])
-        qx = _split_heads(_linear(y, p["cross"]["q_w"], p["cross"]["q_b"]), h)
+        qx = _split_heads(_proj(y, p["cross"], "q"), h)
         if isinstance(xa_k, tuple):
             xk, xv = (xa_k[0][l], xa_k[1][l]), (xa_v[0][l], xa_v[1][l])
         else:
             xk, xv = xa_k[l], xa_v[l]
-        y = _merge_heads(_cross_attention(qx, xk, xv, dtype))
-        x = resid + _linear(y, p["cross"]["o_w"], p["cross"]["o_b"])
+        y, probs = _cross_attention(qx, xk, xv, dtype, return_cross_probs)
+        cross_probs.append(probs)
+        x = resid + _proj(_merge_heads(y), p["cross"], "o")
 
         resid = x
         y = _layer_norm(x, p["mlp_ln"]["g"], p["mlp_ln"]["b"])
-        y = F.gelu(_linear(y, p["mlp"]["fc1_w"], p["mlp"]["fc1_b"]))
-        x = resid + _linear(y, p["mlp"]["fc2_w"], p["mlp"]["fc2_b"])
+        y = F.gelu(_proj(y, p["mlp"], "fc1"))
+        x = resid + _proj(y, p["mlp"], "fc2")
     x = _layer_norm(x, dec["ln"]["g"], dec["ln"]["b"])
 
-    # f32 logits, as the JAX path's f32-accumulated product (bf16 values
-    # are exact in f32); the 128-row vocab pad is never multiplied.
-    logits = torch.matmul(x.float(), dec["tok_emb"][: dims.n_vocab].float().t())
+    if skip_logits:
+        logits = None
+    elif "logits_wq" in dec:  # weight-only int8 head over the padded vocab
+        logits = int8_matmul(x, dec["logits_wq"], dec["logits_ws"])[..., : dims.n_vocab]
+    else:
+        # f32 logits, as the JAX path's f32-accumulated product (bf16 values
+        # are exact in f32); the 128-row vocab pad is never multiplied.
+        logits = torch.matmul(x.float(), dec["tok_emb"][: dims.n_vocab].float().t())
     cache.pos = pos0 + s
+    if return_cross_probs:
+        return logits, cache, torch.stack(cross_probs)
     return logits, cache
 
 

@@ -11,18 +11,25 @@ result dict::
 
 Long audio is cut into 30 s windows, decoded in batches (beam search over
 an int8 KV cache by default) and the window-relative timestamp tokens are
-re-based onto the file timeline.
+re-based onto the file timeline. Windows that fail whisper's quality gates
+are decoded again up a ladder of sampling temperatures; with
+``word_timestamps`` each segment carries DTW-aligned ``words``;
+``compute_type="int8"`` quantises the decoder's weights
+(``ops/quant.py``); ``language="auto"`` detects the language from the
+first window.
 
 Runs on CUDA unless the caller passes ``device="cpu"``: ``device=None``
 means ``"cuda"`` and raises when no CUDA device is present. Options of the
-JAX transcriber that this port does not run yet raise
-``NotImplementedError`` naming their ROADMAP.md item.
+JAX transcriber that this port does not run yet (``chunking="sequential"``)
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 import zlib
+from dataclasses import replace
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
@@ -34,10 +41,18 @@ from .config import RetryConfig
 from .exceptions import ModelLoadError, TranscriptionError
 from .models.whisper.config import MODEL_INFO, WHISPER_DIMS, WhisperDims
 from .models.whisper.convert import load_params, params_from_numpy
-from .models.whisper.decode import DecodeOptions, decode_windows
+from .models.whisper.decode import (
+    DecodeOptions,
+    build_initial_tokens,
+    decode_windows,
+    detect_language,
+    encode_audio_kv,
+)
 from .models.whisper.model import init_params
+from .models.whisper.timestamps import align_words, align_words_batched
 from .models.whisper.tokenizer import WhisperTokenizer, load_tokenizer
 from .ops.mel import log_mel
+from .ops.quant import quantize_decoder
 from .utils import retry_with_backoff
 
 logger = logging.getLogger(__name__)
@@ -63,6 +78,13 @@ def _no_retry_unported(exc: Exception, attempt: int) -> None:
     is a RuntimeError, which transcribe retries): re-raise at once."""
     if isinstance(exc, NotImplementedError):
         raise exc
+
+
+def _retry_rng(temp_idx: int, device: torch.device) -> torch.Generator:
+    """The generator of one rung of the temperature ladder: a fresh one per
+    call with the rung's seed (the JAX package's ``PRNGKey(1000 +
+    temp_idx)``), so a retry never depends on what was sampled before."""
+    return torch.Generator(device=device).manual_seed(1000 + temp_idx)
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -126,10 +148,12 @@ class TorchWhisperBackend:
         self.compression_ratio_threshold = compression_ratio_threshold
         self.patience = patience
         self.kv_cache_dtype = kv_cache_dtype
+        self.fallback_temperatures = (0.2, 0.4, 0.6, 0.8, 1.0)
         self.params = None
         self.tokenizer: Optional[WhisperTokenizer] = None
         # windows and decoded tokens of the last transcribe_array call
-        self.last_stats: Dict[str, int] = {}
+        # and the seconds its word-alignment passes took
+        self.last_stats: Dict[str, Any] = {}
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -137,7 +161,8 @@ class TorchWhisperBackend:
         if self.params is not None:
             return
         self.check_supported()
-        dtype = _DTYPES[self.compute_dtype]
+        # "int8" loads bf16, then quantises the decoder below
+        dtype = _DTYPES.get(self.compute_dtype, torch.bfloat16)
         path = self.weights_path or str(_JAX_WEIGHTS / f"whisper-{self.model_name}")
 
         if str(path).startswith("random"):
@@ -149,6 +174,7 @@ class TorchWhisperBackend:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             self.params = init_params(self.dims, gen, dtype, self.device)
             self.tokenizer = load_tokenizer(None, n_vocab=self.dims.n_vocab)
+            self._maybe_quantize()
             # Quality gates are meaningless on random weights: every window
             # would walk the whole retry ladder.
             self.temperature_fallback = False
@@ -161,7 +187,13 @@ class TorchWhisperBackend:
             )
         self.params = params_from_numpy(load_params(path), self.device, dtype)
         self.tokenizer = load_tokenizer(path, n_vocab=self.dims.n_vocab)
+        self._maybe_quantize()
         logger.info("Loaded Whisper %s from %s", self.model_name, path)
+
+    def _maybe_quantize(self) -> None:
+        if self.compute_dtype == "int8":
+            self.params = quantize_decoder(self.params)
+            logger.info("Decoder quantized to weight-only int8")
 
     def unload(self) -> None:
         self.params = None
@@ -192,13 +224,17 @@ class TorchWhisperBackend:
             return 0.0
         return len(data) / len(zlib.compress(data))
 
-    def _needs_fallback(self, avg_logprob: float, text: str) -> bool:
-        """Whisper's quality gates, which send a window up the ladder."""
+    def _needs_fallback(self, result, tokens_row, text: str) -> bool:
+        """Whisper's quality gates, which send a window up the ladder:
+        ``result`` is the window's average log-probability (None: no
+        decode yet, so it needs one)."""
+        if result is None:
+            return True
         cr = self.compression_ratio_threshold
         lp = self.logprob_threshold
         return (
             (cr is not None and self._compression_ratio(text) > cr)
-            or (lp is not None and float(avg_logprob) < lp)
+            or (lp is not None and float(result) < lp)
         )
 
     def _should_skip_window(self, no_speech_prob: float, avg_logprob: float) -> bool:
@@ -228,16 +264,8 @@ class TorchWhisperBackend:
 
     def check_supported(self) -> None:
         """Raise NotImplementedError for an option this port cannot run yet."""
-        if self.word_timestamps:
-            raise _todo("word_timestamps=True (DTW word alignment)", "DTW word timestamps")
         if self.chunking != "batched":
             raise _todo(f"chunking={self.chunking!r} (the seek loop)", "sequential chunking")
-        if self.language in (None, "", "auto"):
-            raise _todo("language detection", "detect_language")
-        if self.compute_dtype not in _DTYPES:
-            raise _todo(f"compute_type={self.compute_dtype!r}", "compute_type=int8")
-        if self.temperature > 0:
-            raise _todo("temperature > 0 sampling", "temperature ladder")
 
     def transcribe_array(self, audio: np.ndarray, sr: int) -> Dict[str, Any]:
         self.check_supported()
@@ -247,11 +275,18 @@ class TorchWhisperBackend:
         duration = len(audio) / _SR
         windows = self._windows(audio)
         n_win = windows.shape[0]
-        opts = self._decode_options(self.language)
+
+        language = self.language
+        if language in (None, "", "auto"):
+            first_mel = log_mel(torch.from_numpy(windows[:1]).to(self.device),
+                                n_mels=self.dims.n_mels)
+            language, _ = detect_language(self.params, self.dims, self.tokenizer, first_mel)
+            logger.info("Detected language: %s", language)
+        opts = self._decode_options(language)
 
         segments: List[Dict[str, Any]] = []
         texts: List[str] = []
-        stats = {"windows": 0, "decode_tokens": 0}
+        stats = {"windows": 0, "decode_tokens": 0, "retried_windows": 0, "align_s": 0.0}
         for start in range(0, n_win, self.batch_size):
             b = min(self.batch_size, n_win - start)
             # bucket the batch so a bounded set of shapes runs
@@ -259,34 +294,137 @@ class TorchWhisperBackend:
             padded = np.zeros((bucket, windows.shape[1]), np.float32)
             padded[:b] = windows[start : start + b]
             mel = log_mel(torch.from_numpy(padded).to(self.device), n_mels=self.dims.n_mels)
-            result = decode_windows(self.params, self.dims, self.tokenizer, mel, opts)
+            # with word timestamps the audio K/V is encoded once and serves
+            # both the decode and the alignment pass
+            audio_kv = (encode_audio_kv(self.params, self.dims, mel)
+                        if self.word_timestamps else None)
+            result = decode_windows(self.params, self.dims, self.tokenizer, mel, opts,
+                                    audio_kv=audio_kv)
             stats["windows"] += b
             stats["decode_tokens"] += int(result.lengths[:b].sum())
+            tokens_rows = {i: result.tokens[i] for i in range(b)}
+            avg_lp = {i: float(result.avg_logprobs[i]) for i in range(b)}
 
+            # Temperature-fallback ladder (whisper's decode heuristics):
+            # windows with a repetition loop or a low average log-probability
+            # are decoded again at increasing sampling temperatures.
+            if self.temperature_fallback and opts.temperature == 0.0:
+                failing = [
+                    i for i in range(b)
+                    if self._needs_fallback(avg_lp[i], tokens_rows[i], self.tokenizer.decode(
+                        [t for t in tokens_rows[i] if t < self.tokenizer.eot]))
+                ]
+                stats["retried_windows"] += len(failing)
+                if failing:
+                    for i, (toks, lp) in self._retry_windows(mel, failing, opts).items():
+                        tokens_rows[i], avg_lp[i] = toks, lp
+
+            align_jobs: List[tuple] = []
             for i in range(b):
-                tokens_row = result.tokens[i]
-                avg_lp = float(result.avg_logprobs[i])
-                if self.temperature_fallback and opts.temperature == 0.0:
-                    text = self.tokenizer.decode(
-                        [t for t in tokens_row if t < self.tokenizer.eot])
-                    if self._needs_fallback(avg_lp, text):
-                        raise _todo(
-                            f"the temperature-fallback ladder (window {start + i} failed "
-                            "whisper's quality gates)", "temperature ladder")
-                if self._should_skip_window(float(result.no_speech_probs[i]), avg_lp):
+                if self._should_skip_window(float(result.no_speech_probs[i]), avg_lp[i]):
                     continue  # whisper drops silent/music windows entirely
                 offset = (start + i) * _WINDOW_S
                 win_dur = min(_WINDOW_S, duration - offset)
-                segs = self._parse_window(tokens_row, avg_lp, offset, win_dur)
+                segs = self._parse_window(tokens_rows[i], avg_lp[i], offset, win_dur)
+                if self.word_timestamps and segs:
+                    align_jobs.append((segs, tokens_rows[i], i, offset))
                 segments.extend(segs)
                 texts.extend(s["text"] for s in segs)
+            if align_jobs:
+                t0 = time.perf_counter()
+                self._attach_words_batch(align_jobs, audio_kv, opts)
+                stats["align_s"] += time.perf_counter() - t0
         self.last_stats = stats
         return {
             "text": " ".join(t for t in texts if t),
             "segments": segments,
-            "language": self.language,
+            "language": language,
             "duration": duration,
         }
+
+    def _retry_windows(self, mel: torch.Tensor, failing: List[int], opts: DecodeOptions
+                       ) -> Dict[int, tuple]:
+        """Decode the failing windows again up the temperature ladder.
+
+        Returns ``{window_index: (tokens, avg_logprob)}``: the first rung's
+        result that passes the quality gates, or the last rung's whatever
+        it is (whisper keeps the final result even when imperfect). Each
+        rung decodes greedily with sampling, the failing rows padded to a
+        batch bucket by repeating the last one, from a generator seeded
+        per rung, so the same file retries the same way every time.
+        """
+        out: Dict[int, tuple] = {}
+        remaining = list(failing)
+        for temp_idx, temp in enumerate(self.fallback_temperatures):
+            if not remaining:
+                break
+            bucket = next((c for c in _BATCH_BUCKETS if c >= len(remaining)), len(remaining))
+            rows = (remaining + [remaining[-1]] * bucket)[:bucket]
+            sub_mel = mel[torch.tensor(rows, dtype=torch.int64, device=mel.device)]
+            retry_opts = replace(opts, temperature=float(temp), beam_size=1)
+            result = decode_windows(self.params, self.dims, self.tokenizer, sub_mel, retry_opts,
+                                    rng=_retry_rng(temp_idx, mel.device))
+            still: List[int] = []
+            for j, win in enumerate(remaining):
+                toks = result.tokens[j]
+                lp = float(result.avg_logprobs[j])
+                text = self.tokenizer.decode([t for t in toks if t < self.tokenizer.eot])
+                if (self._needs_fallback(lp, toks, text)
+                        and temp != self.fallback_temperatures[-1]):
+                    still.append(win)
+                else:
+                    out[win] = (toks, lp)
+            remaining = still
+            if remaining:
+                logger.debug("temperature fallback: %d windows retry at > %.1f",
+                             len(remaining), temp)
+        return out
+
+    def _attach_words_batch(self, jobs: List[tuple], audio_kv, opts: DecodeOptions) -> None:
+        """DTW word alignment for a batch of windows in one (or a few)
+        passes: ``jobs`` are ``(segs, tokens, window_idx, offset)``; each
+        segment gets its ``words`` and word-tight boundaries."""
+        if not jobs:
+            return
+        xa_k, xa_v = audio_kv
+        prefix, _ = build_initial_tokens(self.tokenizer, opts)
+        items = [(idx, [int(t) for t in tokens], prefix) for (_, tokens, idx, _) in jobs]
+        words_per_window = align_words_batched(
+            self.params, self.dims, self.tokenizer, xa_k, xa_v, items)
+        for (segs, _, _, offset), words in zip(jobs, words_per_window):
+            self._apply_words(segs, words, offset)
+
+    def _attach_words(self, segs: List[Dict[str, Any]], tokens, audio_kv, window_idx: int,
+                      opts: DecodeOptions, offset: float) -> None:
+        """Single-window DTW word alignment."""
+        xa_k, xa_v = audio_kv
+        prefix, _ = build_initial_tokens(self.tokenizer, opts)
+        i = window_idx
+        words = align_words(
+            self.params, self.dims, self.tokenizer,
+            xa_k[:, i : i + 1], xa_v[:, i : i + 1], [int(t) for t in tokens], prefix)
+        self._apply_words(segs, words, offset)
+
+    @staticmethod
+    def _apply_words(segs: List[Dict[str, Any]], words: List[Dict[str, float]],
+                     offset: float) -> None:
+        if not words:
+            return
+        for seg in segs:
+            s0 = seg["start"] - offset
+            s1 = seg["end"] - offset
+            inside = [
+                {"word": w["word"],
+                 "start": round(w["start"] + offset, 3),
+                 "end": round(w["end"] + offset, 3)}
+                for w in words
+                if s0 - 0.2 <= (w["start"] + w["end"]) / 2 <= s1 + 0.2
+            ]
+            if inside:
+                seg["words"] = inside
+                # word-level boundaries are tighter than timestamp tokens
+                seg["start"] = min(seg["start"], inside[0]["start"])
+                seg["end"] = max(seg["end"], inside[-1]["end"])
 
     def _parse_window(
         self, tokens: np.ndarray, avg_logprob: float, offset: float, win_dur: float
@@ -343,8 +481,7 @@ class WhisperTranscriber:
     """Reference-compatible transcriber on the PyTorch stack.
 
     Same constructor as the JAX package's ``WhisperTranscriber`` without its
-    ``mesh`` (multi-GPU comes later) and with ``device``. ``word_timestamps``
-    defaults to False here because DTW word alignment is not ported yet.
+    ``mesh`` (multi-GPU comes later) and with ``device``.
     """
 
     MODEL_INFO = MODEL_INFO
@@ -360,7 +497,7 @@ class WhisperTranscriber:
         lazy_load: bool = True,
         weights_path: Optional[str] = None,
         batch_size: int = 16,
-        word_timestamps: bool = False,
+        word_timestamps: bool = True,
         chunking: str = "batched",
         max_decode_tokens: int = 224,
         device: Optional[str] = None,

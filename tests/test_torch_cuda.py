@@ -16,6 +16,7 @@ import torch
 
 from modular_audio_pipeline_tpu_torch.ops import ancestor_attention as anc_ops
 from modular_audio_pipeline_tpu_torch.ops import attention as attn_ops
+from modular_audio_pipeline_tpu_torch.ops import quant as quant_ops
 
 # bf16: one ulp at |y| in [1, 2) is 7.8e-3; the kernels sum in f32 in another
 # order than the plain versions (and the flash kernel keeps f32
@@ -114,6 +115,53 @@ def test_ancestry_kernel_matches_plain(cuda, q_dtype, cache_dtype, has_new,
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("m, k, n", [
+    (1, 1, 1), (3, 64, 200), (80, 384, 384), (33, 100, 48), (7, 31, 17), (300, 257, 130),
+    (129, 64, 1040), (2, 1280, 5120), (80, 1280, 1280), (16, 640, 96), (17, 130, 72),
+    (400, 1280, 1280),
+])
+def test_int8_matmul_kernel_matches_plain(cuda, m, k, n, dtype):
+    """Aligned and ragged M, K, N (vector and scalar code loads, one and
+    five row tiles, narrow and wide column tiles, with and without the
+    split along K) against the plain version on the same inputs."""
+    x = torch.randn((m, k), generator=cuda, device="cuda").to(dtype)
+    wq = torch.randint(-127, 128, (k, n), generator=cuda, device="cuda", dtype=torch.int8)
+    ws = torch.rand((n,), generator=cuda, device="cuda") * 0.01 + 1e-4
+    before = quant_ops.int8_matmul.launches
+    out = quant_ops.int8_matmul(x, wq, ws)
+    torch.cuda.synchronize()
+    assert quant_ops.int8_matmul.launches == before + 1
+    assert out.shape == (m, n) and out.dtype == torch.float32
+    ref = quant_ops.int8_matmul_reference(x, wq, ws)
+    # both sum the same exact f32 products in another order: each sum is off
+    # by at most K * 2^-24 of the sum of its terms' magnitudes
+    tol = 2 * k * 2.0 ** -24 * (x.to(torch.bfloat16).float().abs() @ wq.float().abs()) * ws
+    assert bool(((out - ref).abs() <= tol + 1e-30).all()), (out - ref).abs().max().item()
+
+
+def test_int8_matmul_kernel_takes_batch_dims_and_views(cuda):
+    """Leading batch dims, a layer slice of stacked codes (the decoder's
+    layout) and a non-contiguous x."""
+    x = torch.randn((2, 5, 96), generator=cuda, device="cuda").to(torch.bfloat16)
+    wq = torch.randint(-127, 128, (3, 96, 80), generator=cuda, device="cuda", dtype=torch.int8)
+    ws = torch.rand((3, 80), generator=cuda, device="cuda") * 0.01
+    out = quant_ops.int8_matmul(x, wq[1], ws[1])
+    assert out.shape == (2, 5, 80)
+    torch.testing.assert_close(out, quant_ops.int8_matmul_reference(x, wq[1], ws[1]),
+                               rtol=1e-4, atol=1e-4)  # f32 summation order
+    xt = x.transpose(0, 1)
+    torch.testing.assert_close(quant_ops.int8_matmul(xt, wq[2], ws[2]),
+                               quant_ops.int8_matmul_reference(xt, wq[2], ws[2]),
+                               rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError):
+        quant_ops.int8_matmul(x.half(), wq[0], ws[0])
+    with pytest.raises(ValueError):
+        quant_ops.int8_matmul(x, wq[0].float(), ws[0])
+    with pytest.raises(ValueError):
+        quant_ops.int8_matmul(x[..., :64], wq[0], ws[0])
+
+
 def _to_cuda(tree):
     return {k: _to_cuda(v) if isinstance(v, dict) else v.cuda() for k, v in tree.items()}
 
@@ -142,3 +190,59 @@ def test_decode_on_card_matches_cpu(cuda):
     assert anc_ops.ancestor_attention.launches > launches[1]
     np.testing.assert_array_equal(got.tokens, want.tokens)
     np.testing.assert_allclose(got.sum_logprobs, want.sum_logprobs, rtol=0, atol=1e-3)
+
+
+def test_int8_decode_on_card_matches_cpu(cuda):
+    """test-tiny decodes with the quantised decoder: all three kernels on
+    the card against the CPU port's plain versions (float32 activations,
+    int8 KV cache). Both round the activations to bf16 before each
+    quantised product, and activations that differ by 1e-6 (f32 sums in
+    another order) now and then round to neighbouring bf16 values, which
+    moves one term by 2^-8 of itself: the prompt's logits agree to 2e-2.
+    Random weights give nearly flat distributions, so that noise can flip
+    a near-tie late in a decode and the rest of that window then differs: the first 8 tokens of every window must be equal and 3 of 4
+    positions overall, and the summed log-probabilities agree to 0.5."""
+    from modular_audio_pipeline_tpu_torch.models.whisper.config import WHISPER_DIMS
+    from modular_audio_pipeline_tpu_torch.models.whisper.decode import (
+        DecodeOptions, decode_windows, encode_audio_kv,
+    )
+    from modular_audio_pipeline_tpu_torch.models.whisper.model import (
+        KVCache, decoder_forward, init_params,
+    )
+    from modular_audio_pipeline_tpu_torch.models.whisper.tokenizer import load_tokenizer
+
+    dims = WHISPER_DIMS["test-tiny"]
+    params = quant_ops.quantize_decoder(
+        init_params(dims, torch.Generator().manual_seed(0), torch.float32))
+    gpu = _to_cuda(params)
+    mel = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((2, dims.n_mels, 3000)).astype(np.float32))
+    tok = load_tokenizer(None, dims.n_vocab)
+
+    prompt = torch.tensor([[50258, 50259, 50359, 50364]] * 2)
+    logits = []
+    for p, dev in ((params, "cpu"), (gpu, "cuda")):
+        xa_k, xa_v = encode_audio_kv(p, dims, mel.to(dev))
+        cache = KVCache.zeros(dims, 2, torch.float32, ctx=8, device=dev)
+        logits.append(decoder_forward(p, dims, prompt.to(dev), xa_k, xa_v, cache)[0].cpu())
+    torch.testing.assert_close(logits[1], logits[0], rtol=0, atol=2e-2)
+
+    for beam_size in (1, 5):
+        opts = DecodeOptions(language="en", beam_size=beam_size, max_tokens=32)
+        want = decode_windows(params, dims, tok, mel, opts)
+        before = quant_ops.int8_matmul.launches
+        got = decode_windows(gpu, dims, tok, mel.cuda(), opts)
+        # cross K/V (2 per layer), then the prompt pass and every step:
+        # 8 projections per layer + the head
+        per_pass = 8 * dims.n_text_layer + 1
+        passes, rest = divmod(
+            quant_ops.int8_matmul.launches - before - 2 * dims.n_text_layer, per_pass)
+        assert rest == 0 and passes >= 2
+        np.testing.assert_array_equal(got.tokens[:, :8], want.tokens[:, :8])
+        assert (got.tokens == want.tokens).mean() >= 0.75
+        same = (got.tokens == want.tokens).all(axis=1)
+        # equal tokens: sums of <= 33 log-probabilities that agree to 2e-2
+        # each at worst; a window that took another path: within 5%
+        np.testing.assert_allclose(got.sum_logprobs[same], want.sum_logprobs[same],
+                                   rtol=0, atol=0.1)
+        np.testing.assert_allclose(got.sum_logprobs, want.sum_logprobs, rtol=0.05, atol=0)

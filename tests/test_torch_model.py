@@ -153,3 +153,48 @@ def test_quantize_rows_matches_jax():
     jq, js = jax_model._quantize_rows(jnp.asarray(rows))
     np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+
+
+def test_cross_probs_teacher_forced_pass_matches_jax(weights, audio_kv):
+    """decoder_forward(return_cross_probs=True, skip_logits=True), the
+    alignment pass: no logits, float16 probabilities [L, B, H, S, T] that
+    sum to one over the audio frames."""
+    jp, pp = weights
+    xa_j, xa_p = audio_kv
+    jk, jv = jax_model.cross_kv(jp, DIMS, xa_j)
+    pk, pv = pt_model.cross_kv(pp, PT, xa_p)
+    seq = np.random.default_rng(7).integers(0, 50000, (2, 12)).astype(np.int32)
+    jc = jax_model.KVCache.zeros(DIMS, 2, jnp.float32, ctx=12)
+    pc = pt_model.KVCache.zeros(PT, 2, torch.float32, ctx=12)
+    jl, jc, jprobs = jax_model.decoder_forward(
+        jp, DIMS, jnp.asarray(seq), jk, jv, jc, return_cross_probs=True, skip_logits=True)
+    pl, pc, pprobs = pt_model.decoder_forward(
+        pp, PT, torch.from_numpy(seq).long(), pk, pv, pc, return_cross_probs=True,
+        skip_logits=True)
+    assert jl is None and pl is None
+    assert pprobs.dtype == torch.float16
+    assert tuple(pprobs.shape) == (DIMS.n_text_layer, 2, DIMS.n_text_head, 12, 1500)
+    # probabilities <= 1 that agree to ~1e-6 in f32, then one f16 rounding
+    # each (half an ulp is 2^-11 relative)
+    np.testing.assert_allclose(pprobs.float().numpy(), np.asarray(jprobs, np.float32),
+                               rtol=2.0 ** -10, atol=1e-7)
+    np.testing.assert_allclose(pprobs.float().sum(-1).numpy(), 1.0, atol=2e-3)
+    _compare_cache(pc, jc, quant=False)
+    # with logits, the same pass returns what the plain call returns
+    pc2 = pt_model.KVCache.zeros(PT, 2, torch.float32, ctx=12)
+    pl2, _, probs2 = pt_model.decoder_forward(
+        pp, PT, torch.from_numpy(seq).long(), pk, pv, pc2, return_cross_probs=True)
+    pc3 = pt_model.KVCache.zeros(PT, 2, torch.float32, ctx=12)
+    pl3, _ = pt_model.decoder_forward(pp, PT, torch.from_numpy(seq).long(), pk, pv, pc3)
+    torch.testing.assert_close(pl2, pl3, rtol=0, atol=0)
+    assert torch.equal(probs2, pprobs)
+
+
+def test_cross_probs_refuse_quantised_or_beam_shared_kv(weights, audio_kv):
+    _, pp = weights
+    _, xa_p = audio_kv
+    pk, pv = pt_model.cross_kv(pp, PT, xa_p)
+    seq = torch.zeros((4, 2), dtype=torch.int64)  # 4 token rows over 2 windows
+    cache = pt_model.KVCache.zeros(PT, 4, torch.float32, ctx=8)
+    with pytest.raises(ValueError, match="cross-attention probabilities"):
+        pt_model.decoder_forward(pp, PT, seq, pk, pv, cache, return_cross_probs=True)
