@@ -11,14 +11,21 @@ Phases (any failure exits non-zero and prints no result line):
    ``modular_audio_pipeline_tpu_torch/csrc`` (one ``nvcc`` per source, all
    started together), timed.
 2. The flash-attention kernel against its plain PyTorch version at the
-   large-v3-turbo encoder shape [16, 20, 1500, 64] bf16 (and a small f32
-   case), with the kernel's, the plain version's and
-   ``scaled_dot_product_attention``'s times (the latter only as a yardstick;
-   the port never calls it).
+   large-v3-turbo encoder shape [16, 20, 1500, 64] bf16, at bf16 sequence
+   lengths of 1, 129, 300 and 1501 (ragged tiles; the whole tensor is
+   compared, so a tail tile that spilt into the next head would show), at
+   head dim 32 and in f32, each run twice for equal bits; with the kernel's,
+   the plain version's and ``scaled_dot_product_attention``'s times (the
+   latter only as a yardstick; the port never calls it) beside its three
+   bounds (tensor-core operations, exponentials, bytes).
 3. The ancestry-attention kernel against its plain version at the decode
    shape (16 windows x 5 beams, 20 heads, ctx 448, hd 64), int8 and bf16
    caches, with this step's rows written at the last position: the output
-   and the written cache are compared, and both are timed.
+   and the written cache are compared, two runs must give equal bits, and
+   the kernel is timed on the device (CUDA-graph replays) and eagerly with
+   its wrapper, at the 448 bucket and at a 64 bucket, with beams that pick
+   rows at random and with beams that share their ancestry up to the last
+   three positions, as real decoding does.
 3b. The weight-only int8 product kernel against its plain version at the
    decode step's shapes (M = 80 rows; K x N of 1280 x 1280, 1280 x 5120,
    5120 x 1280 and the logits head 1280 x 51968), at the cross K/V shape
@@ -131,10 +138,19 @@ def bound(bytes_moved: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS)
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def exp_rate(torch) -> float:
+    """Exponentials per second of the card's special-function units: 16 per
+    clock per SM at the highest SM clock nvidia-smi reports."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * 16 * mhz * 1e6
+
+
 # -- phase 2 -----------------------------------------------------------------
 
-FLASH_TOL = 1e-2  # bf16: one ulp at |y| in [1, 2) is 7.8e-3; the kernel keeps
-#                   f32 probabilities where the plain version rounds them to bf16
+FLASH_TOL = 1e-2  # bf16: one ulp at |y| in [1, 2) is 7.8e-3; the kernel rounds the
+#                   unnormalised probabilities to bf16, the plain version the normalised
 FLASH_TOL_F32 = 1e-4  # f32: fast exp and another summation order
 
 
@@ -144,29 +160,43 @@ def phase_flash(torch):
     from modular_audio_pipeline_tpu_torch.ops.attention import attention_reference, flash_attention
 
     g = torch.Generator(device="cuda").manual_seed(0)
+
+    def check(shape, dtype, tol):
+        q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(3))
+        out, again = flash_attention(q, k, v), flash_attention(q, k, v)
+        ref = attention_reference(q, k, v)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()  # over every head: a tail tile
+        same = torch.equal(out, again)                        # must not reach the next one
+        log(f"flash {str(dtype)[6:]} {shape}: max_abs_err {err:.3e} (tol {tol}), "
+            f"two runs bit-equal {same}")
+        if not (err <= tol and same):
+            raise AssertionError(f"flash_attention at {shape} {dtype}: err {err}, bit-equal {same}")
+        return q, k, v, err
+
+    for shape in [(2, 3, 1, 64), (2, 3, 129, 64), (2, 3, 300, 64), (2, 2, 1501, 64),
+                  (1, 2, 1500, 32)]:
+        check(shape, torch.bfloat16, FLASH_TOL)
+    check((2, 4, 1500, 64), torch.float32, FLASH_TOL_F32)
     shape = (16, 20, 1500, 64)
-    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
-    out = flash_attention(q, k, v)
-    ref = attention_reference(q, k, v)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    log(f"flash bf16 {shape}: max_abs_err {err:.3e} (tol {FLASH_TOL})")
-    if not err <= FLASH_TOL:
-        raise AssertionError(f"flash_attention disagrees with its plain version: {err}")
+    q, k, v, err = check(shape, torch.bfloat16, FLASH_TOL)
 
-    qs, ks_, vs_ = (t[:2, :4].float().contiguous() for t in (q, k, v))
-    err32 = (flash_attention(qs, ks_, vs_) - attention_reference(qs, ks_, vs_)).abs().max().item()
-    log(f"flash f32 {tuple(qs.shape)}: max_abs_err {err32:.3e} (tol {FLASH_TOL_F32})")
-    if not err32 <= FLASH_TOL_F32:
-        raise AssertionError(f"flash_attention f32 disagrees with its plain version: {err32}")
-
-    ms = time_ms(lambda: flash_attention(q, k, v), 10)
+    # the pre-pass that scales k is part of the call, so it is in both times
+    ms = graph_ms([lambda: flash_attention(q, k, v)] * 4)
+    eager_ms = time_ms(lambda: flash_attention(q, k, v), 10)
     plain_ms = time_ms(lambda: attention_reference(q, k, v), 5)
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
     b, h, s, d = shape
     bound_ms, bound_by = bound(4 * q.numel() * q.element_size(), 4.0 * b * h * s * s * d)
-    log(f"flash: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
+    exp_ms = b * h * s * s / exp_rate(torch) * 1e3
+    bytes_ms = 4 * q.numel() * q.element_size() / PEAK_BYTES * 1e3
+    ops_ms = 4.0 * b * h * s * s * d / PEAK_BF16_FLOPS * 1e3
+    binds = "exponentials" if exp_ms > bound_ms else bound_by
+    log(f"flash: kernel {ms:.4f} ms on the device ({eager_ms:.4f} ms eager), plain {plain_ms:.3f} ms, "
+        f"sdpa {lib_ms:.4f} ms; bounds: operations {ops_ms:.4f} ms, exponentials {exp_ms:.4f} ms, "
+        f"bytes {bytes_ms:.4f} ms: {binds} bind")
+    if exp_ms > bound_ms:  # the special-function unit's operations
+        bound_ms, bound_by = exp_ms, "operations"
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "modular_audio_pipeline_tpu_torch/csrc/flash_attention.cu",
@@ -182,8 +212,11 @@ ANC_TOL = 1e-2  # bf16 y: f32 sums in another order may move a rounded
 #                 probability or y by one bf16 ulp (7.8e-3 at |y| in [1, 2))
 
 
-def _anc_inputs(torch, quant: bool, g):
-    bw, kq, h, ctx, hd, n_layers = 16, 5, 20, 448, 64, 4
+def _anc_inputs(torch, quant: bool, g, ctx: int = 448, shared: bool = False, bw: int = 16):
+    """One decode step's inputs at the last position of a ``ctx`` bucket.
+    ``shared``: every beam of a window follows beam 0's ancestry up to the
+    last three positions, as real decoding does; else rows at random."""
+    kq, h, hd, n_layers = 5, 20, 64, 4
     bk, pos, layer = bw * kq, ctx - 1, 2
     dev = "cuda"
     q = (torch.randn((bk, h, 1, hd), generator=g, device=dev) * 0.125).to(torch.bfloat16)
@@ -207,8 +240,10 @@ def _anc_inputs(torch, quant: bool, g):
         if c is not None:
             c[layer, :, :, pos] = 0  # not yet written, as in the decode loop
     anc = torch.randint(0, kq, (bw, kq, ctx), generator=g, device=dev, dtype=torch.int32)
+    if shared:
+        anc[:, :, :-3] = anc[:, :1, :-3]
     anc[:, :, pos] = torch.arange(kq, device=dev, dtype=torch.int32)  # own-row claim
-    mask = torch.zeros((ctx,), device=dev)  # every position live: the 448 bucket's last step
+    mask = torch.zeros((ctx,), device=dev)  # every position live: the bucket's last step
     return q, cache, new, anc, mask, layer, pos
 
 
@@ -224,7 +259,22 @@ def _anc_bytes(q, cache, anc, mask, layer):
             + anc.numel() * 4 + mask.numel() * 4)
 
 
+def _host_us(fn, n: int = 200) -> float:
+    """Host microseconds of one call of ``fn``: ``n`` calls queued without a
+    wait (fewer than the launch queue holds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
 def phase_ancestry(torch):
+    from modular_audio_pipeline_tpu_torch.ops import ancestor_attention as anc_ops
     from modular_audio_pipeline_tpu_torch.ops.ancestor_attention import (
         ancestor_attention,
         ancestor_attention_reference,
@@ -232,26 +282,34 @@ def phase_ancestry(torch):
 
     g = torch.Generator(device="cuda").manual_seed(1)
     result = None
-    for quant in (True, False):
-        q, cache, new, anc, mask, layer, pos = _anc_inputs(torch, quant, g)
+    # (cache type, context bucket, shared ancestry); the first is the kernels line's row
+    cases = [(True, 448, False), (True, 448, True), (True, 64, False), (True, 64, True),
+             (False, 448, False)]
+    for quant, ctx, shared in cases:
+        q, cache, new, anc, mask, layer, pos = _anc_inputs(torch, quant, g, ctx, shared)
         mine = [None if c is None else c.clone() for c in cache]
         plain = [None if c is None else c.clone() for c in cache]
         y = ancestor_attention(q, *mine, layer, anc, mask, *new, pos)
         y_ref = ancestor_attention_reference(q, *plain, layer, anc, mask, *new, pos)
+        again = ancestor_attention(q, *mine, layer, anc, mask)
         torch.cuda.synchronize()
         err = (y.float() - y_ref.float()).abs().max().item()
         same = all(a is None or torch.equal(a, b) for a, b in zip(mine, plain))
-        name = "int8" if quant else "bf16"
-        log(f"ancestry {name}: max_abs_err {err:.3e} (tol {ANC_TOL}), cache rows equal {same}")
-        if not (err <= ANC_TOL and same):
+        bits = torch.equal(y, again)
+        name = (f"{'int8' if quant else 'bf16'} ctx {ctx} "
+                f"{'shared ancestry' if shared else 'random ancestry'}")
+        log(f"ancestry {name}: max_abs_err {err:.3e} (tol {ANC_TOL}), cache rows equal {same}, "
+            f"two runs bit-equal {bits}")
+        if not (err <= ANC_TOL and same and bits):
             raise AssertionError(f"ancestor_attention ({name}) disagrees with its plain version")
-        ms = time_ms(lambda: ancestor_attention(q, *mine, layer, anc, mask), 50)
+        ms = graph_ms([lambda: ancestor_attention(q, *mine, layer, anc, mask)] * 8)
+        eager_ms = time_ms(lambda: ancestor_attention(q, *mine, layer, anc, mask), 50)
         plain_ms = time_ms(lambda: ancestor_attention_reference(q, *plain, layer, anc, mask), 10)
         bound_ms, bound_by = bound(_anc_bytes(q, cache, anc, mask, layer),
                                    4.0 * q.shape[0] * q.shape[1] * anc.shape[-1] * q.shape[-1])
-        log(f"ancestry {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
-        if quant:  # the main path's cache type
+        log(f"ancestry {name}: kernel {ms:.4f} ms on the device ({eager_ms:.4f} ms eager, with "
+            f"its wrapper), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        if result is None:  # the main path's cache type at its longest bucket
             result = {
                 "name": "ancestor_attention", "route": "cuda",
                 "source": "modular_audio_pipeline_tpu_torch/csrc/ancestor_attention.cu",
@@ -259,6 +317,30 @@ def phase_ancestry(torch):
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None,
             }
+            sweep = {split: graph_ms(
+                [lambda: ancestor_attention(q, *mine, layer, anc, mask, split=split)] * 8)
+                for split in (1, 2, 4)}
+            log("ancestry blocks per (window, head), 16 windows: "
+                + ", ".join(f"{k}: {v:.4f} ms" for k, v in sweep.items()))
+        if (quant, ctx, shared) == (True, 64, True):  # the device is short here: host time shows
+            log(f"ancestry wrapper on the host: {_host_us(lambda: ancestor_attention(q, *mine, layer, anc, mask)):.1f} us "
+                f"a call, of which its checks "
+                f"{_host_us(lambda: anc_ops._check(q, *mine, layer, anc, mask)):.1f} us; with the "
+                f"row store {_host_us(lambda: ancestor_attention(q, *mine, layer, anc, mask, *new, pos)):.1f} us")
+        del cache, mine, plain
+        torch.cuda.empty_cache()
+    # one window (a file of up to 30 s): 20 (window, head) pairs for 132 SMs
+    q, cache, new, anc, mask, layer, pos = _anc_inputs(torch, True, g, 448, True, bw=1)
+    y1 = ancestor_attention(q, *cache, layer, anc, mask, split=1)
+    sweep = {}
+    for split in (1, 2, 4, 0):
+        y = ancestor_attention(q, *cache, layer, anc, mask, split=split)
+        if not (y.float() - y1.float()).abs().max().item() <= ANC_TOL:
+            raise AssertionError(f"ancestor_attention: split {split} disagrees with split 1")
+        sweep[split or "auto"] = graph_ms(
+            [lambda: ancestor_attention(q, *cache, layer, anc, mask, split=split)] * 8)
+    log("ancestry blocks per (window, head), 1 window: "
+        + ", ".join(f"{k}: {v:.4f} ms" for k, v in sweep.items()))
     return result
 
 
@@ -470,8 +552,14 @@ def phase_end_to_end_int8(torch, wav: Path, seconds: float):
         f"({n_words} words)")
     if not with_words:
         raise AssertionError("e2e int8: no segment carries words")
+    from modular_audio_pipeline_tpu_torch.models.whisper.decode import encode_audio_kv
+
+    b = tr._backend
+    mel = torch.randn((16, b.dims.n_mels, 3000), device="cuda")
+    encode_s = time_ms(lambda: encode_audio_kv(b.params, b.dims, mel), 2, warmup=1) / 1e3
+    log(f"e2e int8: encoder + cross K/V {encode_s:.3f} s of the wall time")
     busy, top = device_breakdown(torch, lambda: tr.transcribe(str(wav)), "e2e int8")
-    return launches, {"wall_s": wall, "realtime_x": seconds / wall,
+    return launches, {"wall_s": wall, "realtime_x": seconds / wall, "encode_s": encode_s,
                       "segments": len(out["segments"]), "words": n_words,
                       "decode_tokens": stats["decode_tokens"], "decode_steps": steps,
                       "align_s": stats["align_s"], "device_busy_share": busy,
@@ -498,6 +586,11 @@ def device_breakdown(torch, fn, label: str, top: int = 8):
     busy_ms = sum(r[1] for r in rows)
     for name, ms, n in rows[:top]:
         log(f"  device {ms:9.1f} ms  x{n:<6d} {name[:90]}")
+    for mine in ("flash_fwd_tc", "scale_rows", "ancestor_attention_kernel", "int8_matmul_kernel"):
+        hits = [(ms, n) for name, ms, n in rows if mine in name]
+        if hits:
+            log(f"  {label}: {mine} {sum(h[0] for h in hits):.1f} ms over "
+                f"{sum(h[1] for h in hits)} launches")
     log(f"{label} (profiled): wall {wall:.3f} s, device busy {busy_ms / 1e3:.3f} s")
     if busy_ms <= 0:
         return None, []

@@ -15,7 +15,7 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "attention_reference"]
+__all__ = ["flash_attention", "attention_reference", "flash_arithmetic_emulation"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -33,10 +33,45 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     return torch.matmul(probs.float(), v.float()).to(q.dtype)
 
 
+def flash_arithmetic_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               tile: int = 128) -> torch.Tensor:
+    """The kernel's arithmetic, step by step, in plain PyTorch.
+
+    q and k scaled by D^-0.25 and rounded to their type first; key tiles
+    of ``tile`` rows (the ragged tail is a shorter tile, which is what
+    masking its missing keys to -inf amounts to); a running max and sum in
+    f32 with the exponential as exp2 of the score times log2(e); the
+    UNNORMALISED probabilities rounded to the input type before the
+    f32-accumulated product with v; the sum taken from the f32
+    probabilities; one division at the end. The tensor-core kernel uses
+    tiles of 128 keys, the SIMT kernel tiles of 32. Nothing on the main
+    path calls this: it states what the kernel commits to, for the CPU
+    tests that hold it against the JAX package and for explaining a
+    mismatch on the card.
+    """
+    dt = q.dtype
+    scale = q.shape[-1] ** -0.25
+    log2e = 1.4426950408889634
+    qs, ks, vf = (q * scale).float(), (k * scale).float(), v.float()
+    m = torch.full(q.shape[:-1] + (1,), float("-inf"))
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape, dtype=torch.float32)
+    m, l, acc = m.to(q.device), l.to(q.device), acc.to(q.device)
+    for k0 in range(0, k.shape[-2], tile):
+        s = torch.matmul(qs, ks[..., k0:k0 + tile, :].transpose(-1, -2))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp2((m - m_new) * log2e)
+        p = torch.exp2(s * log2e - m_new * log2e)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.matmul(p.to(dt).float(), vf[..., k0:k0 + tile, :])
+        m = m_new
+    return (acc / l).to(dt)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load("flash_attention").flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -48,6 +83,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     stream (contiguous bf16 or f32, D of 32 or 64) and raises on anything
     it does not take or on a failed launch; on a CPU tensor it runs
     :func:`attention_reference`. Forward only.
+
+    bf16 at D = 64 (the encoder of every model wider than test-tiny) runs on
+    the tensor cores: a pre-pass writes ``k * D^-0.25`` rounded to bf16 into
+    scratch allocated here, and q, k, v must start on 16-byte boundaries
+    (any fresh tensor does). f32 inputs, and bf16 at D = 32, take the
+    kernel's SIMT path.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v)
@@ -67,9 +108,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     if d not in (32, 64):
         raise ValueError(f"flash_attention: head dim {d} not built (32 or 64)")
     o = torch.empty_like(q)
+    scratch = None
+    if q.dtype == torch.bfloat16 and d == 64:
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("flash_attention: q/k/v must start on 16-byte boundaries")
+        scratch = torch.empty_like(k)  # k * D^-0.25, written by the kernel's pre-pass
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                       None if scratch is None else scratch.data_ptr(),
                        b * h, s, d, _DTYPE_CODES[q.dtype], d ** -0.25, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed (cudaError {rc})")

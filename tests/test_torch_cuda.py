@@ -19,9 +19,10 @@ from modular_audio_pipeline_tpu_torch.ops import attention as attn_ops
 from modular_audio_pipeline_tpu_torch.ops import quant as quant_ops
 
 # bf16: one ulp at |y| in [1, 2) is 7.8e-3; the kernels sum in f32 in another
-# order than the plain versions (and the flash kernel keeps f32
-# probabilities where the plain version rounds them), so a rounded value may
-# land on the neighbouring bf16 value. f32: fast exp and summation order.
+# order than the plain versions (and the flash kernel rounds the unnormalised
+# probabilities to bf16 where the plain version rounds the normalised ones),
+# so a rounded value may land on the neighbouring bf16 value. f32: fast exp
+# and summation order.
 TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 
 
@@ -36,8 +37,12 @@ def cuda():
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("shape", [(1, 1, 1, 64), (2, 3, 129, 64), (1, 2, 1500, 32),
-                                   (1, 1, 300, 64)])
+                                   (1, 1, 300, 64), (2, 2, 1501, 64), (16, 20, 1500, 64)])
 def test_flash_kernel_matches_plain(cuda, shape, dtype):
+    """Ragged query and key tiles (1, 129, 300, 1500, 1501 are no multiples
+    of 128), several heads (a tail tile must not reach the next head: the
+    whole tensor is compared) and the encoder's own shape; bf16 at head dim
+    64 runs on the tensor cores, the rest on the SIMT path."""
     q, k, v = (torch.randn(shape, generator=cuda, device="cuda").to(dtype) for _ in range(3))
     before = attn_ops.flash_attention.launches
     out = attn_ops.flash_attention(q, k, v)
@@ -46,6 +51,16 @@ def test_flash_kernel_matches_plain(cuda, shape, dtype):
     assert out.shape == q.shape and out.dtype == dtype
     err = (out.float() - attn_ops.attention_reference(q, k, v).float()).abs().max().item()
     assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 300, 64), (4, 20, 1500, 64), (1, 2, 300, 32)])
+def test_flash_kernel_gives_equal_bits_twice(cuda, shape):
+    q, k, v = (torch.randn(shape, generator=cuda, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    first = attn_ops.flash_attention(q, k, v)
+    second = attn_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
@@ -57,9 +72,14 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     w = torch.randn((1, 2, 64, 48), generator=cuda, device="cuda")
     with pytest.raises(ValueError):
         attn_ops.flash_attention(w, w, w)
+    # the tensor-core path loads 16-byte vectors: a view that starts off them is refused
+    buf = torch.zeros(3 * 2 * 64 * 64 + 8, device="cuda", dtype=torch.bfloat16)
+    odd = buf[1:1 + 2 * 64 * 64].view(1, 2, 64, 64)
+    with pytest.raises(ValueError):
+        attn_ops.flash_attention(odd, odd, odd)
 
 
-def _anc_case(g, q_dtype, cache_dtype, bw, kq, h, ctx, hd, n_valid):
+def _anc_case(g, q_dtype, cache_dtype, bw, kq, h, ctx, hd, n_valid, shared=False):
     dev = "cuda"
     n_layers, layer, pos = 2, 1, n_valid - 1
     bk = bw * kq
@@ -80,6 +100,8 @@ def _anc_case(g, q_dtype, cache_dtype, bw, kq, h, ctx, hd, n_valid):
         new = [torch.randn((bk, h, 1, hd), generator=g, device=dev).to(cache_dtype)
                for _ in range(2)] + [None, None]
     anc = torch.randint(0, kq, (bw, kq, ctx), generator=g, device=dev, dtype=torch.int32)
+    if shared:  # as in real decoding: the beams differ in their last few tokens only
+        anc[:, :, :max(pos - 2, 0)] = anc[:, :1, :max(pos - 2, 0)]
     anc[:, :, pos] = torch.arange(kq, device=dev, dtype=torch.int32)
     mask = torch.where(torch.arange(ctx, device=dev) < n_valid, 0.0, float("-inf"))
     return q, cache, new, anc, mask, layer, pos
@@ -113,6 +135,69 @@ def test_ancestry_kernel_matches_plain(cuda, q_dtype, cache_dtype, has_new,
     for a, b in zip(mine, plain):
         if a is not None:
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("split", [0, 1, 2, 4], ids=["auto", "one_block", "split2", "split4"])
+@pytest.mark.parametrize("q_dtype, cache_dtype", [
+    (torch.bfloat16, torch.int8), (torch.float32, torch.float32),
+], ids=["bf16_int8", "f32_f32"])
+@pytest.mark.parametrize("bw, kq, h, ctx, hd, n_valid", [
+    (16, 5, 20, 448, 64, 448), (2, 5, 3, 64, 64, 37), (1, 12, 2, 130, 32, 101),
+])
+def test_ancestry_kernel_shared_ancestry_and_splits(cuda, q_dtype, cache_dtype, split,
+                                                    bw, kq, h, ctx, hd, n_valid):
+    """Beams that share their ancestry up to the last positions (every
+    hypothesis reads the same rows), with the positions of a (window, head)
+    in one block or split over a cluster of 2 or 4, and more beams than one
+    pass of the PV sums holds: the plain version's values, the new rows
+    stored, and the same bits on a second run."""
+    q, cache, new, anc, mask, layer, pos = _anc_case(
+        cuda, q_dtype, cache_dtype, bw, kq, h, ctx, hd, n_valid, shared=True)
+    mine = [None if c is None else c.clone() for c in cache]
+    plain = [None if c is None else c.clone() for c in cache]
+    y = anc_ops.ancestor_attention(q, *mine, layer, anc, mask, *new, pos, split=split)
+    y_ref = anc_ops.ancestor_attention_reference(q, *plain, layer, anc, mask, *new, pos)
+    again = anc_ops.ancestor_attention(q, *mine, layer, anc, mask, split=split)
+    torch.cuda.synchronize()
+    err = (y.float() - y_ref.float()).abs().max().item()
+    assert err <= TOL[q_dtype], err
+    assert torch.equal(y, again)
+    for a, b in zip(mine, plain):
+        if a is not None:
+            assert torch.equal(a, b)
+
+
+def test_ancestry_kernel_takes_rows_it_cannot_read_in_place(cuda):
+    """New rows that are views (not contiguous) are stored by copies before
+    the launch instead of by the kernel: same output, same cache."""
+    q, cache, new, anc, mask, layer, pos = _anc_case(
+        cuda, torch.bfloat16, torch.int8, 2, 5, 3, 64, 64, 37)
+    wide = [torch.cat([t, t], dim=-1) for t in new]  # rows as the left halves of wider tensors
+    views = [w[..., :t.shape[-1]] for w, t in zip(wide, new)]
+    assert not views[0].is_contiguous()
+    mine = [c.clone() for c in cache]
+    plain = [c.clone() for c in cache]
+    y = anc_ops.ancestor_attention(q, *mine, layer, anc, mask, *views, pos)
+    y_ref = anc_ops.ancestor_attention_reference(q, *plain, layer, anc, mask, *new, pos)
+    torch.cuda.synchronize()
+    assert (y.float() - y_ref.float()).abs().max().item() <= TOL[torch.bfloat16]
+    for a, b in zip(mine, plain):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        anc_ops.ancestor_attention(q, *mine, layer, anc, mask, *new, 64)  # pos outside ctx
+
+
+def test_ancestry_kernel_refuses_what_it_does_not_take(cuda):
+    q, cache, new, anc, mask, layer, pos = _anc_case(
+        cuda, torch.bfloat16, torch.int8, 2, 5, 3, 64, 64, 37)
+    with pytest.raises(RuntimeError):  # more blocks than a portable cluster holds
+        anc_ops.ancestor_attention(q, *cache, layer, anc, mask, split=16)
+    with pytest.raises(ValueError):
+        anc_ops.ancestor_attention(q.half(), *cache, layer, anc, mask)
+    with pytest.raises(ValueError):
+        anc_ops.ancestor_attention(q, *cache, layer, anc.long(), mask)
+    with pytest.raises(ValueError):
+        anc_ops.ancestor_attention(q, cache[0], cache[1], None, None, layer, anc, mask)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])

@@ -6,6 +6,7 @@ interpret mode, as tests/test_attention.py does. Inputs are made with
 numpy from a seed and handed to both.
 """
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -137,6 +138,10 @@ def test_ancestor_reference_matches_pallas_kernel(quant, has_new):
             layer, jnp.asarray(anc_l), jnp.asarray(mask), *map(_jopt, new),
             pos if has_new else None, k_beams=anc.shape[1], interpret=True,
         )
+        # JAX dispatches asynchronously and, like torch.from_numpy below, may
+        # alias the numpy buffers: its kernel must have read the cache before
+        # the port's in-place row store writes into the same memory.
+        out = jax.block_until_ready(out)
         pt = [_t(ck_l), _t(cv_l), _opt(ks_l), _opt(vs_l)]
         got = pt_anc.ancestor_attention(
             _t(q), *pt, layer, _t(anc_l), _t(mask), *map(_opt, new),
@@ -171,6 +176,7 @@ def test_ancestor_reference_f32_matches_jax_reference(has_new):
         layer, jnp.asarray(anc), jnp.asarray(mask), *map(_jopt, new),
         pos if has_new else None,
     )
+    out = jax.block_until_ready(out)  # before the port writes into the shared buffers
     pt = [_t(ck), _t(cv), _t(ks), _t(vs)]
     got = pt_anc.ancestor_attention_reference(
         _t(q), *pt, layer, _t(anc), _t(mask), *map(_opt, new), pos if has_new else None)
