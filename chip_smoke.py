@@ -29,9 +29,15 @@ Phases (any failure exits non-zero and prints no result line):
 3b. The weight-only int8 product kernel against its plain version at the
    decode step's shapes (M = 80 rows; K x N of 1280 x 1280, 1280 x 5120,
    5120 x 1280 and the logits head 1280 x 51968), at the cross K/V shape
-   (M = 24000, 1280 x 1280) and at a ragged shape (3 x 64 x 200), with the
-   kernel's, the plain version's and, as a yardstick the port never calls,
-   ``torch.matmul``'s time in bf16 on a weight dequantised beforehand.
+   (M = 24000, 1280 x 1280) and at a ragged shape (3 x 64 x 200), in the
+   head's form (f32 out) and in ``_proj``'s (bf16 out, bias fused), each
+   twice for equal bits and one launch per product, within a tolerance
+   that two lower-precision controls are shown to fail; at 80-row shapes
+   that make the plan split K over each cluster size 1-8, against the
+   plain version and the emulation of the split; with the
+   kernel's time, its eager time, the plain version's and, as a yardstick
+   the port never calls, ``torch.matmul``'s in bf16 on a weight dequantised
+   beforehand, beside the bound (one ``int8_matmul_shapes`` line).
 4. End to end: ``WhisperTranscriber("large-v3-turbo", weights_path="random:0",
    beam_size=5, max_decode_tokens=224, device="cuda")`` with the no-speech
    gate off transcribes 8 minutes of voiced audio (16 windows, one batch),
@@ -41,7 +47,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``compute_type="int8"`` and ``word_timestamps=True``: all three kernels
    must launch, the int8 product at least 33 times per decode step, and
    segments carry words inside the file. The seconds of the
-   word-alignment pass are logged.
+   word-alignment pass and the M of every int8 product are logged; under
+   the profiler the int8 kernels' device launches must equal the
+   wrapper's calls (one launch per product, no reduction kernel).
 5. The shipped ``whisper-tiny-synth-proxy`` bundle transcribes two held-out
    synthetic sentences on the card, once through the kernels and once with
    the model's kernel calls bound to the plain versions; the agreement
@@ -350,23 +358,91 @@ def phase_ancestry(torch):
 INT8_SHAPES = [(80, 1280, 1280), (80, 1280, 5120), (80, 5120, 1280), (80, 1280, 51968),
                (24000, 1280, 1280), (3, 64, 200)]
 INT8_HEAD = (80, 1280, 51968)
+INT8_ROUTES = {0: "generic", 1: "decode", 2: "wide"}
 
 
 L2_BYTES = 50e6  # H100: weights re-read within this many bytes come from the cache
 
 
+# (K, N) at which the decode kernel's plan takes each cluster size at 80 rows
+INT8_CLUSTER_SHAPES = {1: (1280, 8448), 2: (1280, 5120), 3: (192, 1280), 4: (1280, 2560),
+                       5: (640, 1280), 6: (384, 1280), 7: (1280, 1280), 8: (5120, 1280)}
+
+
+def _int8_tol(torch, x, wq, ws, ref, out_dtype):
+    """Per element: the kernel and the plain version add the same exact f32
+    products (bf16 x int8) in another order, and rounding errors that add
+    like a random walk stay within 2 sqrt(K) 2^-24 of the sum of the terms'
+    magnitudes, times the column's scale (sound runs measured below a tenth
+    of it; an output or accumulator rounded to bf16 is far outside, as
+    ``_int8_controls`` shows); plus one f32 rounding of the biased value,
+    and in bf16 one bf16 spacing (2^-7 of the value at most)."""
+    terms = x.to(torch.bfloat16).float().abs() @ wq.float().abs()
+    tol = 2 * wq.shape[0] ** 0.5 * 2.0 ** -24 * terms * ws + 2.0 ** -23 * ref.abs()
+    return tol + 2.0 ** -7 * ref.abs() if out_dtype == torch.bfloat16 else tol
+
+
+def _int8_check(torch, x, wq, ws, bias, out_dtype):
+    """One product through the kernel, twice, against the plain version ->
+    (max abs error, worst error / tolerance, output, tolerance). Raises unless within ``_int8_tol``
+    at every element, finite, one launch per call and equal bits twice."""
+    from modular_audio_pipeline_tpu_torch.ops.quant import int8_matmul, int8_matmul_reference
+
+    before = int8_matmul.launches
+    out = int8_matmul(x, wq, ws, bias, out_dtype)
+    again = int8_matmul(x, wq, ws, bias, out_dtype)
+    torch.cuda.synchronize()
+    ref = int8_matmul_reference(x, wq, ws, bias, torch.float32)
+    tol = _int8_tol(torch, x, wq, ws, ref, out_dtype)
+    diff = (out.float() - ref).abs()
+    err, ratio = diff.max().item(), (diff / tol).max().item()
+    ok = (bool((diff <= tol).all()) and bool(torch.isfinite(out).all())
+          and torch.equal(out, again) and int8_matmul.launches == before + 2)
+    if not ok:
+        raise AssertionError(f"int8_matmul disagrees with its plain version at {tuple(x.shape)} x "
+                             f"{tuple(wq.shape)}, {out_dtype}, bias {bias is not None}: err {err} "
+                             f"(worst error / tolerance {ratio:.3g}), "
+                             f"bit-equal {torch.equal(out, again)}")
+    return err, ratio, out, tol
+
+
+def _int8_controls(torch, x, wq, ws, tol) -> str:
+    """Products that keep less than f32, held to the f32 tolerance: the
+    plain version rounded to bf16, and the JAX package's other branch (code
+    x scale rounded to bf16 before the sum). Raises if either passes."""
+    from modular_audio_pipeline_tpu_torch.ops.quant import int8_matmul_reference
+
+    ref = int8_matmul_reference(x, wq, ws)
+    controls = {"bf16_rounded": ref.to(torch.bfloat16).float(),
+                "bf16_weights": x.to(torch.bfloat16).float()
+                @ (wq.float() * ws).to(torch.bfloat16).float()}
+    worst = {}
+    for name, c in controls.items():
+        worst[name] = ((c - ref).abs() / tol).max().item()
+        if worst[name] <= 1:
+            raise AssertionError(f"int8_matmul's tolerance passes the {name} control")
+    return ", ".join(f"{k} {v:.1f}x" for k, v in worst.items())
+
+
 def phase_int8(torch):
-    """Kernel 3 against its plain version. Both sum the same exact f32
-    products (bf16 x int8) in another order, so each sum may be off by
-    K * 2^-24 of the sum of its terms' magnitudes: the tolerance, per
-    element, is twice that, times the column's scale.
+    """Kernel 3 against its plain version at every main-path shape, in the
+    head's form (f32 out, no bias) and in ``_proj``'s (bf16 out, bf16 bias
+    added in f32 before the one rounding), with controls that keep less
+    than f32 shown to fail the tolerance; then at each cluster size the
+    decode kernel can take, against the plain version and the emulation of
+    its split.
 
     Times are device times from CUDA-graph replays (the decode step's
     launches are shorter than their wrapper's host work), over enough
     distinct copies of the weight to exceed the L2 cache: the decode loop
     walks 158 MB of codes per step, so it finds each weight cold. The
     eager time, host work included, is logged beside them."""
-    from modular_audio_pipeline_tpu_torch.ops.quant import int8_matmul, int8_matmul_reference
+    from modular_audio_pipeline_tpu_torch.ops.quant import (
+        int8_matmul,
+        int8_matmul_reference,
+        int8_matmul_split_emulation,
+        plan,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(2)
     result, table = None, []
@@ -374,34 +450,36 @@ def phase_int8(torch):
         x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
         wq = torch.randint(-127, 128, (k, n), generator=g, device="cuda", dtype=torch.int8)
         ws = torch.rand((n,), generator=g, device="cuda") * 0.002 + 1e-4  # |w| <= ~0.25
-        out = int8_matmul(x, wq, ws)
-        ref = int8_matmul_reference(x, wq, ws)
-        torch.cuda.synchronize()
-        tol = 2 * k * 2.0 ** -24 * (x.float().abs() @ wq.float().abs()) * ws
-        diff = (out - ref).abs()
-        err, tol_max = diff.max().item(), tol.max().item()
-        ok = bool((diff <= tol).all()) and bool(torch.isfinite(out).all())
-        del ref, tol, diff, out
-        if not ok:
-            raise AssertionError(f"int8_matmul disagrees with its plain version at {(m, k, n)}")
+        bias = (torch.randn((n,), generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+        err, ratio, out, tol = _int8_check(torch, x, wq, ws, None, torch.float32)
+        controls = _int8_controls(torch, x, wq, ws, tol)
+        err_proj, _, _, _ = _int8_check(torch, x, wq, ws, bias, torch.bfloat16)
+        p = plan(m, k, n)
+        del out, tol
 
         copies = 1 if m > 1000 else min(64, int(L2_BYTES // (k * n)) + 2)
         wqs = [wq] + [wq.clone() for _ in range(copies - 1)]
         # dequantised beforehand, twice the bytes: the yardstick the port never calls
         w_bf16 = [(w.float() * ws).to(torch.bfloat16) for w in wqs]
         ms = graph_ms([lambda w=w: int8_matmul(x, w, ws) for w in wqs])
+        proj_ms = graph_ms([lambda w=w: int8_matmul(x, w, ws, bias, torch.bfloat16) for w in wqs])
         plain_ms = graph_ms([lambda w=w: int8_matmul_reference(x, w, ws) for w in wqs], reps=2)
         lib_ms = graph_ms([lambda w=w: torch.matmul(x, w) for w in w_bf16])
         eager_ms = time_ms(lambda: int8_matmul(x, wq, ws), 5 if m > 1000 else 50)
         bytes_moved = k * n + m * k * x.element_size() + n * 4 + m * n * 4
         bound_ms, bound_by = bound(bytes_moved, 2.0 * m * k * n)
-        log(f"int8_matmul M {m} K {k} N {n}: max_abs_err {err:.3e} (tol up to {tol_max:.3e}), "
-            f"kernel {ms:.4f} ms (eager, with its wrapper: {eager_ms:.4f} ms), "
-            f"plain {plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms, "
+        row = {"m": m, "k": k, "n": n, "route": INT8_ROUTES[p["route"]], "cluster": p["cluster"],
+               "ms": ms, "proj_bf16_bias_ms": proj_ms, "eager_ms": eager_ms,
+               "plain_ms": plain_ms, "bf16_matmul_ms": lib_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "max_abs_err": err, "err_over_tol": ratio,
+               "proj_max_abs_err": err_proj, "launches_per_product": 1}
+        log(f"int8_matmul M {m} K {k} N {n} ({row['route']}, cluster {p['cluster']}): max_abs_err "
+            f"{err:.3e} (worst error / tolerance {ratio:.3f}; controls fail it by {controls}), "
+            f"bf16+bias {err_proj:.3e}, two runs bit-equal; "
+            f"kernel {ms:.4f} ms (bf16 out + bias {proj_ms:.4f} ms; eager, with its wrapper: "
+            f"{eager_ms:.4f} ms), plain {plain_ms:.4f} ms, bf16 matmul {lib_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}), {copies} weight copies")
-        table.append({"m": m, "k": k, "n": n, "ms": ms, "eager_ms": eager_ms,
-                      "plain_ms": plain_ms, "bf16_matmul_ms": lib_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "max_abs_err": err})
+        table.append(row)
         if (m, k, n) == INT8_HEAD:
             result = {
                 "name": "int8_matmul", "route": "cuda",
@@ -413,6 +491,25 @@ def phase_int8(torch):
         del x, wq, ws, wqs, w_bf16
         torch.cuda.empty_cache()
     log(json.dumps({"int8_matmul_shapes": table}))
+    # each cluster size the decode kernel's plan can take, reached through
+    # the shape: the plain version, and the emulation of the split element
+    # by element
+    for cluster, (k, n) in INT8_CLUSTER_SHAPES.items():
+        p = plan(80, k, n)
+        if p["route"] != 1 or p["cluster"] != cluster:
+            raise AssertionError(f"int8_matmul: plan {p} at 80 x {k} x {n}, not cluster {cluster}")
+        x = torch.randn((80, k), generator=g, device="cuda").to(torch.bfloat16)
+        wq = torch.randint(-127, 128, (k, n), generator=g, device="cuda", dtype=torch.int8)
+        ws = torch.rand((n,), generator=g, device="cuda") * 0.002 + 1e-4
+        bias = (torch.randn((n,), generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+        err, ratio, out, tol = _int8_check(torch, x, wq, ws, bias, torch.float32)
+        emu = int8_matmul_split_emulation(x, wq, ws, bias, torch.float32, k_slice=p["k_slice"])
+        emu_err = (out - emu).abs()
+        if not bool((emu_err <= tol).all()):
+            raise AssertionError(f"int8_matmul at cluster {cluster} disagrees with its emulation")
+        log(f"int8_matmul cluster {cluster} (80 x {k} x {n}, K slice {p['k_slice']}): max_abs_err "
+            f"{err:.3e} (worst error / tolerance {ratio:.3f}), against the emulation "
+            f"{emu_err.max().item():.3e}, two runs bit-equal")
     return result
 
 
@@ -444,11 +541,32 @@ def _reset_launches():
     return wrappers
 
 
-def _timed_run(torch, tr, wav: Path, seconds: float, label: str):
-    """Warm-up run, then one run with every kernel's launch count set to 0
-    just before and read just after -> (result, wall seconds, launches)."""
+@contextlib.contextmanager
+def record_int8_shapes(shapes: dict):
+    """Count the (M, K, N) of every int8 product the model makes."""
+    from modular_audio_pipeline_tpu_torch.models.whisper import model
+
+    real = model.int8_matmul
+
+    def spy(x, wq, ws, *args, **kw):
+        key = (x.numel() // x.shape[-1], *wq.shape)
+        shapes[key] = shapes.get(key, 0) + 1
+        return real(x, wq, ws, *args, **kw)
+
+    model.int8_matmul = spy
+    try:
+        yield
+    finally:
+        model.int8_matmul = real
+
+
+def _timed_run(torch, tr, wav: Path, seconds: float, label: str, warmup=contextlib.nullcontext):
+    """Warm-up run (inside ``warmup()``), then one run with every kernel's
+    launch count set to 0 just before and read just after -> (result, wall
+    seconds, launches)."""
     t0 = time.perf_counter()
-    tr.transcribe(str(wav))
+    with warmup():
+        tr.transcribe(str(wav))
     torch.cuda.synchronize()
     log(f"{label}: warm-up run {time.perf_counter() - t0:.2f} s")
 
@@ -496,7 +614,7 @@ def phase_end_to_end(torch, wav: Path, seconds: float):
         raise AssertionError(f"main path skipped a kernel: {launches}")
     if launches["int8_matmul"] != 0:
         raise AssertionError(f"the bf16 path launched the int8 kernel: {launches}")
-    busy, top = device_breakdown(torch, lambda: tr.transcribe(str(wav)), "e2e")
+    busy, top, _ = device_breakdown(torch, lambda: tr.transcribe(str(wav)), "e2e")
     stats = b.last_stats
     return launches, {"wall_s": wall, "realtime_x": seconds / wall,
                       "segments": len(out["segments"]),
@@ -524,9 +642,18 @@ def phase_end_to_end_int8(torch, wav: Path, seconds: float):
     dec = tr._backend.params["decoder"]
     if dec["logits_wq"].dtype != torch.int8 or "q_w" in dec["blocks"]["attn"]:
         raise AssertionError("compute_type=int8 left the decoder unquantised")
-    out, wall, launches = _timed_run(torch, tr, wav, seconds, "e2e int8")
+    shapes = {}
+    out, wall, launches = _timed_run(torch, tr, wav, seconds, "e2e int8",
+                                     warmup=lambda: record_int8_shapes(shapes))
     stats = tr._backend.last_stats
     log(f"e2e int8: word alignment {stats['align_s']:.3f} s of the wall time")
+    # M of each int8 product in one run: 80 (decode steps), the prompt pass,
+    # 16 x 1500 (cross K/V) and the alignment pass (windows x tokens)
+    by_m = {}
+    for (m, k, n), c in shapes.items():
+        by_m.setdefault(m, []).append(f"{k}x{n} x{c}")
+    log("e2e int8: int8 products by M: " + "; ".join(
+        f"M {m}: {', '.join(v)}" for m, v in sorted(by_m.items())))
 
     steps = launches["ancestor_attention"] // tr._backend.dims.n_text_layer
     if launches["flash_attention"] != 32 or steps <= 0:
@@ -558,18 +685,29 @@ def phase_end_to_end_int8(torch, wav: Path, seconds: float):
     mel = torch.randn((16, b.dims.n_mels, 3000), device="cuda")
     encode_s = time_ms(lambda: encode_audio_kv(b.params, b.dims, mel), 2, warmup=1) / 1e3
     log(f"e2e int8: encoder + cross K/V {encode_s:.3f} s of the wall time")
-    busy, top = device_breakdown(torch, lambda: tr.transcribe(str(wav)), "e2e int8")
+    wrappers = _reset_launches()
+    busy, top, mine = device_breakdown(torch, lambda: tr.transcribe(str(wav)), "e2e int8")
+    # one device launch per product: the kernel's launches on the device
+    # equal the wrapper's calls, and no other int8 kernel (a reduction) ran
+    on_device = mine["int8_matmul"][1]
+    log(f"e2e int8 (profiled): {wrappers['int8_matmul'].launches} int8_matmul calls, "
+        f"{on_device} int8 kernel launches on the device")
+    if on_device != wrappers["int8_matmul"].launches:
+        raise AssertionError("int8_matmul made other than one device launch per product")
     return launches, {"wall_s": wall, "realtime_x": seconds / wall, "encode_s": encode_s,
                       "segments": len(out["segments"]), "words": n_words,
                       "decode_tokens": stats["decode_tokens"], "decode_steps": steps,
                       "align_s": stats["align_s"], "device_busy_share": busy,
-                      "top_kernels_ms": top}
+                      "top_kernels_ms": top, "int8_kernel_ms": mine["int8_matmul"][0],
+                      "int8_products_by_m": {str(m): sum(c for (mm, _, _), c in shapes.items()
+                                                         if mm == m) for m in by_m}}
 
 
 def device_breakdown(torch, fn, label: str, top: int = 8):
-    """Device busy share and the kernels with the most device time over one
-    run of ``fn``, from torch.profiler. The profiler slows the host, so the
-    busy share it gives is a lower bound; None when it saw no device time."""
+    """Device busy share, the kernels with the most device time over one
+    run of ``fn``, and (ms, launches) of each of the port's kernels, from
+    torch.profiler. The profiler slows the host, so the busy share it gives
+    is a lower bound; None when it saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -586,15 +724,17 @@ def device_breakdown(torch, fn, label: str, top: int = 8):
     busy_ms = sum(r[1] for r in rows)
     for name, ms, n in rows[:top]:
         log(f"  device {ms:9.1f} ms  x{n:<6d} {name[:90]}")
-    for mine in ("flash_fwd_tc", "scale_rows", "ancestor_attention_kernel", "int8_matmul_kernel"):
-        hits = [(ms, n) for name, ms, n in rows if mine in name]
+    mine = {}
+    for kernel in ("flash_fwd_tc", "scale_rows", "ancestor_attention_kernel", "int8_matmul_decode",
+                   "int8_matmul_wide", "int8_matmul_generic", "int8_matmul"):
+        hits = [(ms, n) for name, ms, n in rows if kernel in name]
+        mine[kernel] = (sum(h[0] for h in hits), sum(h[1] for h in hits))
         if hits:
-            log(f"  {label}: {mine} {sum(h[0] for h in hits):.1f} ms over "
-                f"{sum(h[1] for h in hits)} launches")
+            log(f"  {label}: {kernel} {mine[kernel][0]:.1f} ms over {mine[kernel][1]} launches")
     log(f"{label} (profiled): wall {wall:.3f} s, device busy {busy_ms / 1e3:.3f} s")
     if busy_ms <= 0:
-        return None, []
-    return busy_ms / 1e3 / wall, [[name[:90], ms, n] for name, ms, n in rows[:top]]
+        return None, [], mine
+    return busy_ms / 1e3 / wall, [[name[:90], ms, n] for name, ms, n in rows[:top]], mine
 
 
 # -- phase 5 -----------------------------------------------------------------

@@ -1,17 +1,36 @@
 #!/usr/bin/env python3
-"""Device times of the port's attention kernels, for comparing two trees.
+"""Device times of the port's kernels, for comparing two trees.
 
-    python3 kernel_times.py [ROOT]
+    python3 kernel_times.py [ROOT] [--e2e]
 
 imports ``modular_audio_pipeline_tpu_torch`` from ROOT (default: this
 file's directory), builds its kernels and prints one JSON line with the
-flash kernel's time at the large-v3-turbo encoder shape and the ancestry
+flash kernel's time at the large-v3-turbo encoder shape, the ancestry
 kernel's at the decode shape (16 windows x 5 beams x 20 heads, int8
 cache), at a 448 and a 64 context bucket, with random and with shared
-ancestry. Times are means over CUDA-graph replays, so the wrappers' host
-work is not in them. It uses only calls that every version of the port
-has, so the same script times a checkout of an earlier commit unpacked
-elsewhere: run both in one job on one card and compare within that job.
+ancestry, and the int8 product's at the five main-path shapes and at 16
+rows: the
+kernel alone (``int8_matmul(x, wq, ws)``, f32 out) and, for the four
+projection shapes, the model's ``_proj`` with a bf16 bias and bf16
+activations (the kernel plus whatever bias add and cast the tree does
+after it) with the number of device launches it makes, beside bf16
+``torch.matmul`` on a dequantised weight. The int8
+times cycle over enough copies of the weight to exceed the 50 MB L2, as
+the decode loop finds its weights cold. Times are means over CUDA-graph
+replays, so the wrappers' host work is not in them; that is timed apart,
+as the host microseconds of one call of ``int8_matmul`` and of ``_proj``
+at the 80-row shapes (calls queued without a wait), beside one bf16
+``torch.matmul``'s as a yardstick of the host's load (also taken before
+the first kernel runs and, with ``--e2e``, after the last). ``--e2e`` adds the
+int8 + words path of ``chip_smoke.py`` phase 4b: random large-v3-turbo
+built through ``from_config`` with ``compute_type="int8"`` and
+``word_timestamps=True`` transcribes the same 8 minutes of audio, and
+so does the same model in bf16 as the control (it runs no int8 product):
+one warm-up run each, then three timed runs each in turns (wall and
+word-alignment seconds of every run). It uses only calls
+that every version of the port since the int8 kernel has, so the same
+script times a checkout of an earlier commit unpacked elsewhere: run both
+in one job on one card and compare within that job.
 """
 
 from __future__ import annotations
@@ -20,21 +39,35 @@ import json
 import sys
 from pathlib import Path
 
-ROOT = Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else Path(__file__).resolve().parent
+HERE = Path(__file__).resolve().parent
+ARGS = [a for a in sys.argv[1:] if not a.startswith("--")]
+ROOT = Path(ARGS[0]).resolve() if ARGS else HERE
+E2E = "--e2e" in sys.argv[1:]
 sys.path.insert(0, str(ROOT))
 
 
+# the five main-path shapes, then 16 rows (language detection's width):
+# what a product costs with next to no arithmetic
+INT8_SHAPES = [(80, 1280, 1280), (80, 1280, 5120), (80, 5120, 1280), (80, 1280, 51968),
+               (24000, 1280, 1280), (16, 1280, 1280)]
+L2_BYTES = 50e6
+
+
 def graph_ms(torch, fn, calls: int = 8, reps: int = 10) -> float:
+    """Mean time of one call: ``fn`` is a callable run ``calls`` times per
+    replay, or a list of callables run in turn."""
+    fns = fn if isinstance(fn, list) else [fn] * calls
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        for f in fns:
+            f()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
+        for f in fns:
+            f()
     graph.replay()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -43,7 +76,78 @@ def graph_ms(torch, fn, calls: int = 8, reps: int = 10) -> float:
         graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / (reps * calls)
+    return start.elapsed_time(end) / (reps * len(fns))
+
+
+def host_us(torch, fn, n: int = 200, reps: int = 5) -> float:
+    """Median over ``reps`` of the host microseconds of one call of ``fn``,
+    ``n`` calls queued without a wait (fewer than the launch queue holds)."""
+    import statistics
+    import time
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def e2e_int8_words(torch, out: dict) -> None:
+    """chip_smoke.py phase 4b's transcription, without its checks, in int8
+    and in bf16: one warm-up run each, then three timed runs each in turns."""
+    import importlib.util
+    import tempfile
+    import time
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from modular_audio_pipeline_tpu_torch.audio_io import write_wav
+    from modular_audio_pipeline_tpu_torch.config import PipelineConfig
+    from modular_audio_pipeline_tpu_torch.transcriber import WhisperTranscriber
+
+    trs = {}
+    for compute_type in ("int8", "bfloat16"):
+        cfg = PipelineConfig(lazy_load_models=False)
+        tc = cfg.transcription
+        tc.model, tc.language, tc.weights_path = "large-v3-turbo", "en", "random:0"
+        tc.beam_size, tc.max_decode_tokens, tc.batch_size = 5, 224, 16
+        tc.compute_type, tc.word_timestamps = compute_type, True
+        tc.no_speech_threshold = None
+        trs[compute_type] = WhisperTranscriber.from_config(cfg, device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        wav = Path(d) / "bench.wav"
+        write_wav(str(wav), smoke.bench_audio(480.0), smoke.SR)
+        for tr in trs.values():
+            tr.transcribe(str(wav))
+        for _ in range(3):
+            for compute_type, tr in trs.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.transcribe(str(wav))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                name = "int8" if compute_type == "int8" else "bf16"
+                out.setdefault(f"e2e_{name}_words_wall_s", []).append(wall)
+                out.setdefault(f"e2e_{name}_words_align_s", []).append(
+                    tr._backend.last_stats["align_s"])
+
+
+def device_launches(torch, fn) -> int:
+    """Kernels one call of ``fn`` puts on the device (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def main() -> int:
@@ -57,6 +161,10 @@ def main() -> int:
 
     g = torch.Generator(device="cuda").manual_seed(0)
     out = {"root": str(ROOT), "card": torch.cuda.get_device_name(0)}
+    x = torch.randn((80, 1280), generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn((1280, 1280), generator=g, device="cuda").to(torch.bfloat16)
+    out["host_us_bf16_matmul_at_start"] = host_us(torch, lambda: torch.matmul(x, w))
+    del x, w
     q, k, v = (torch.randn((16, 20, 1500, 64), generator=g, device="cuda").to(torch.bfloat16)
                for _ in range(3))
     out["flash_ms"] = graph_ms(torch, lambda: flash_attention(q, k, v), calls=4, reps=5)
@@ -76,6 +184,42 @@ def main() -> int:
                 anc[:, :, :-3] = anc[:, :1, :-3]
             name = f"ancestry_ctx{ctx}_{'shared' if shared else 'random'}_ms"
             out[name] = graph_ms(torch, lambda: ancestor_attention(q, *cache, layer, anc, mask))
+    del q, cache
+    torch.cuda.empty_cache()
+
+    from modular_audio_pipeline_tpu_torch.models.whisper.model import _proj
+    from modular_audio_pipeline_tpu_torch.ops.quant import int8_matmul
+
+    for m, k, n in INT8_SHAPES:
+        x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        ws = torch.rand((n,), generator=g, device="cuda") * 0.002 + 1e-4
+        bias = (torch.randn((n,), generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+        copies = 1 if m > 1000 else min(64, int(L2_BYTES // (k * n)) + 2)
+        wqs = [torch.randint(-127, 128, (k, n), generator=g, device="cuda", dtype=torch.int8)
+               for _ in range(copies)]
+        reps = 2 if m > 1000 else 5
+        shape = f"{m}x{k}x{n}"
+        out[f"int8_{shape}_ms"] = graph_ms(
+            torch, [lambda w=w: int8_matmul(x, w, ws) for w in wqs], reps=reps)
+        if n != 51968:  # the head has no bias and keeps f32
+            mods = [{"q_wq": w, "q_ws": ws, "q_b": bias} for w in wqs]
+            out[f"proj_{shape}_ms"] = graph_ms(
+                torch, [lambda mod=mod: _proj(x, mod, "q") for mod in mods], reps=reps)
+            out[f"proj_{shape}_launches"] = device_launches(torch, lambda: _proj(x, mods[0], "q"))
+        w_bf16 = [(w.float() * ws).to(torch.bfloat16) for w in wqs]
+        out[f"bf16_matmul_{shape}_ms"] = graph_ms(
+            torch, [lambda w=w: torch.matmul(x, w) for w in w_bf16], reps=reps)
+        if m == 80 and n != 51968:  # the decode step's products, shorter than their host work
+            out[f"host_us_int8_{shape}"] = host_us(torch, lambda: int8_matmul(x, wqs[0], ws))
+            out[f"host_us_proj_{shape}"] = host_us(torch, lambda: _proj(x, mods[0], "q"))
+            out[f"host_us_bf16_matmul_{shape}"] = host_us(torch, lambda: torch.matmul(x, w_bf16[0]))
+        del x, wqs, w_bf16
+        torch.cuda.empty_cache()
+    if E2E:
+        e2e_int8_words(torch, out)
+        x = torch.randn((80, 1280), generator=g, device="cuda").to(torch.bfloat16)
+        w = torch.randn((1280, 1280), generator=g, device="cuda").to(torch.bfloat16)
+        out["host_us_bf16_matmul_at_end"] = host_us(torch, lambda: torch.matmul(x, w))
     print(json.dumps(out))
     return 0
 

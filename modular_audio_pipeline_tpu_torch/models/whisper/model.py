@@ -75,16 +75,14 @@ def _linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torc
 
 def _proj(y: torch.Tensor, mod: Dict[str, Any], name: str) -> torch.Tensor:
     """Projection that dispatches on quantisation: ``name_w`` (the
-    parameters' type) or ``name_wq``/``name_ws`` (weight-only int8, f32
-    out; the bias joins in f32 before the one rounding to y's type)."""
+    parameters' type) or ``name_wq``/``name_ws`` (weight-only int8: one
+    kernel launch that scales the f32 sum, adds the bias in f32 and rounds
+    once to y's type, as the JAX ``_proj`` does in three operations)."""
     wq = mod.get(f"{name}_wq")
     bias = mod.get(f"{name}_b")
     if wq is None:
         return _linear(y, mod[f"{name}_w"], bias)
-    out = int8_matmul(y, wq, mod[f"{name}_ws"])  # a fresh f32 tensor
-    if bias is not None:
-        out.add_(bias)  # the bias is exact in f32: an f32 sum, in place
-    return out.to(y.dtype)
+    return int8_matmul(y, wq, mod[f"{name}_ws"], bias, y.dtype)
 
 
 def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:

@@ -8,29 +8,35 @@ are half the bytes of bf16. ``compute_type="int8"`` quantises the decoder's
 projections and adds a quantised copy of the embedding for the logits.
 
 The kernel (``csrc/int8_matmul.cu``) replaces the Pallas
-``_int8_matmul_kernel``: the codes cross device memory as int8 and are
-converted next to the multiplier. ``int8_matmul_reference`` is its plain
+``_int8_matmul_kernel`` and, in the same launch, the bias add and the cast
+that the JAX ``_proj`` applies to its result: the codes cross device
+memory as int8 and are converted next to the multiplier, and the output
+is stored once, in its final type. ``int8_matmul_reference`` is its plain
 PyTorch version, used for tensors on the CPU and as the oracle the kernel
-is held against on the card. Both follow the Pallas kernel's arithmetic
-(x rounded to bf16, f32 sum, the scale applied to the finished sum), not
+is held against on the card; ``int8_matmul_split_emulation`` writes out the
+order in which the kernel adds when it splits K over a cluster. All follow
+the Pallas kernel's arithmetic (x rounded to bf16, f32 sum, the scale
+applied to the finished sum, then the bias in f32 and one rounding), not
 the JAX package's other branch, which rounds ``code * scale`` to bf16
 first and which the TPU takes for shapes its kernel's tiling rejects; the
-CUDA kernel takes every shape.
+CUDA kernel takes every shape. Codes stay in the JAX layout ``[K, N]``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from . import _build
 
-__all__ = ["quantize_weight", "int8_matmul", "int8_matmul_reference", "quantize_decoder"]
+__all__ = ["quantize_weight", "int8_matmul", "int8_matmul_reference",
+           "int8_matmul_split_emulation", "quantize_decoder"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_NO_BIAS = -1
 
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -43,41 +49,83 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale.squeeze(-2)
 
 
-def int8_matmul_reference(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch ``x [..., K] @ dequant(wq [K, N]) -> [..., N]`` f32:
-    x rounded to bf16, codes exact, f32 sum, then the per-column scale."""
-    return (x.to(torch.bfloat16).float() @ wq.float()) * ws
+def _finish(acc: torch.Tensor, ws: torch.Tensor, bias: Optional[torch.Tensor],
+            out_dtype: torch.dtype) -> torch.Tensor:
+    """The epilogue: scale the finished f32 sum, add the bias in f32, round
+    once to ``out_dtype``."""
+    out = acc * ws
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(out_dtype)
+
+
+def int8_matmul_reference(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None,
+                          out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch ``x [..., K] @ dequant(wq [K, N]) (+ bias) -> [..., N]``:
+    x rounded to bf16, codes exact, f32 sum, then the per-column scale, then
+    the bias in f32, then one rounding to ``out_dtype``."""
+    return _finish(x.to(torch.bfloat16).float() @ wq.float(), ws, bias, out_dtype)
+
+
+def int8_matmul_split_emulation(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                                bias: Optional[torch.Tensor] = None,
+                                out_dtype: torch.dtype = torch.float32,
+                                k_slice: Optional[int] = None) -> torch.Tensor:
+    """The kernel's order of arithmetic when it splits K over a cluster, in
+    plain PyTorch: one f32 partial sum per slice of ``k_slice`` rows of K
+    (the last takes what is left; on the card ``plan(m, k, n)["k_slice"]``),
+    the partial sums added in rank order, then scale, bias and one
+    rounding. (Inside a slice the tensor cores add in their own order, as
+    any f32 product does.)"""
+    k = wq.shape[0]
+    xb = x.to(torch.bfloat16).float()
+    step = k if k_slice is None else k_slice
+    acc = None
+    for k0 in range(0, k, step):
+        part = xb[..., k0:k0 + step] @ wq[k0:k0 + step].float()
+        acc = part if acc is None else acc + part
+    return _finish(acc, ws, bias, out_dtype)
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load("int8_matmul").int8_matmul_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=4096)
-def _splits(m: int, k: int, n: int) -> int:
-    """How many blocks along K the kernel takes at this shape (few rows and
-    a narrow output leave too few tiles to fill the card): above 1 it needs
-    a workspace of that many partial sums."""
-    fn = _build.load("int8_matmul").int8_matmul_splits
-    fn.argtypes = [ctypes.c_int] * 3
+def plan(m: int, k: int, n: int, dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
+    """The kernel's plan for a shape: ``route`` (0: generic; 1: decode,
+    ``cols`` columns per CTA, K split over a cluster of ``cluster`` CTAs of
+    ``k_slice`` rows each; 2: wide, for more than 128 rows) and ``rows``
+    (decode: x rows padded to the ``wgmma`` width). Needs the built library
+    (the card's SM count enters the plan)."""
+    fn = _build.load("int8_matmul").int8_matmul_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn(m, k, n)
+    buf = (ctypes.c_int * 5)()
+    if fn(m, k, n, _DTYPE_CODES[dtype], buf) != 0:
+        raise ValueError(f"int8_matmul: no plan for M {m}, K {k}, N {n}")
+    return dict(zip(("route", "rows", "cols", "cluster", "k_slice"), buf))
 
 
-def int8_matmul(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
-    """``x [..., K] @ dequant(wq [K, N], ws [N]) -> [..., N]`` in f32.
+def int8_matmul(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                bias: Optional[torch.Tensor] = None,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``round_to(out_dtype, x [..., K] @ dequant(wq [K, N], ws [N]) + bias)``
+    -> ``[..., N]``; ``bias`` ([N], f32 or bf16) is added in f32 after the
+    scale, before the one rounding.
 
-    On a CUDA tensor this launches the hand-written kernel on the current
-    stream, at any M, K and N (x bf16 or f32, rounded to bf16 on load),
-    and raises on anything it does not take or on a failed launch; on a
-    CPU tensor it runs :func:`int8_matmul_reference`.
+    On a CUDA tensor this makes one launch of the hand-written kernel on
+    the current stream, at any M, K and N (x bf16 or f32, rounded to bf16
+    on load), and raises on anything it does not take or on a failed
+    launch; on a CPU tensor it runs :func:`int8_matmul_reference`.
     """
     if x.device.type == "cpu":
-        return int8_matmul_reference(x, wq, ws)
+        return int8_matmul_reference(x, wq, ws, bias, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {x.device}")
     if wq.dim() != 2 or x.dim() < 1 or x.shape[-1] != wq.shape[0] or ws.shape != wq.shape[1:]:
@@ -86,6 +134,12 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Te
     if x.dtype not in _DTYPE_CODES or wq.dtype != torch.int8 or ws.dtype != torch.float32:
         raise ValueError(f"int8_matmul: bf16 or f32 x, int8 codes and f32 scales, got "
                          f"{x.dtype}, {wq.dtype}, {ws.dtype}")
+    if out_dtype not in _DTYPE_CODES:
+        raise ValueError(f"int8_matmul: out_dtype must be f32 or bf16, got {out_dtype}")
+    if bias is not None and (bias.shape != ws.shape or bias.dtype not in _DTYPE_CODES
+                             or bias.device != x.device or not bias.is_contiguous()):
+        raise ValueError(f"int8_matmul: bias must be a contiguous [N] f32 or bf16 tensor on "
+                         f"{x.device}, got {tuple(bias.shape)} {bias.dtype} on {bias.device}")
     if wq.device != x.device or ws.device != x.device:
         raise ValueError("int8_matmul: tensors on different devices")
     if not (wq.is_contiguous() and ws.is_contiguous()):
@@ -93,18 +147,15 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Te
     k, n = wq.shape
     x2 = x.reshape(-1, k).contiguous()
     m = x2.shape[0]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m > 0:
         with torch.cuda.device(x.device):
-            splits = _splits(m, k, n)
-            # freed on return while the kernels may still run: the caching
-            # allocator hands the block only to later work on this stream
-            work = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-                    if splits > 1 else None)
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            rc = _kernel()(x2.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(),
-                           None if work is None else work.data_ptr(),
-                           m, k, n, _DTYPE_CODES[x.dtype], stream)
+            rc = _kernel()(x2.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+                           None if bias is None else bias.data_ptr(), out.data_ptr(),
+                           m, k, n, _DTYPE_CODES[x.dtype],
+                           _NO_BIAS if bias is None else _DTYPE_CODES[bias.dtype],
+                           _DTYPE_CODES[out_dtype], stream)
         if rc != 0:
             raise RuntimeError(f"int8_matmul: kernel launch failed (cudaError {rc})")
         int8_matmul.launches += 1

@@ -219,9 +219,7 @@ def test_int8_matmul_kernel_matches_plain(cuda, m, k, n, dtype):
     assert quant_ops.int8_matmul.launches == before + 1
     assert out.shape == (m, n) and out.dtype == torch.float32
     ref = quant_ops.int8_matmul_reference(x, wq, ws)
-    # both sum the same exact f32 products in another order: each sum is off
-    # by at most K * 2^-24 of the sum of its terms' magnitudes
-    tol = 2 * k * 2.0 ** -24 * (x.to(torch.bfloat16).float().abs() @ wq.float().abs()) * ws
+    tol = _int8_tol(x, wq, ws, ref, torch.float32)
     assert bool(((out - ref).abs() <= tol + 1e-30).all()), (out - ref).abs().max().item()
 
 
@@ -245,6 +243,135 @@ def test_int8_matmul_kernel_takes_batch_dims_and_views(cuda):
         quant_ops.int8_matmul(x, wq[0].float(), ws[0])
     with pytest.raises(ValueError):
         quant_ops.int8_matmul(x[..., :64], wq[0], ws[0])
+
+
+# (M, K, N): the decode step's projections and head, the cross K/V, the
+# alignment pass, the prompt pass, and ragged shapes for the other kernels
+INT8_SHAPES = [(80, 1280, 1280), (80, 1280, 5120), (80, 5120, 1280), (80, 1280, 51968),
+               (24000, 1280, 1280), (3000, 1280, 5120), (320, 1280, 1280), (16, 1280, 51968),
+               (100, 640, 384), (3, 64, 200), (33, 100, 48), (129, 64, 1040)]
+
+
+def _int8_case(g, m, k, n, bias_dtype):
+    x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device="cuda", dtype=torch.int8)
+    ws = torch.rand((n,), generator=g, device="cuda") * 0.002 + 1e-4
+    b = None if bias_dtype is None else (
+        torch.randn((n,), generator=g, device="cuda") * 0.1).to(bias_dtype)
+    return x, wq, ws, b
+
+
+def _int8_tol(x, wq, ws, ref, out_dtype):
+    """Two f32 summation orders of the same exact products (bf16 x int8):
+    rounding errors that add like a random walk, 2 sqrt(K) 2^-24 of the sum
+    of the terms' magnitudes, times the scale (sound runs stay below a
+    tenth of it; an output or accumulator rounded to bf16 is far outside);
+    plus one f32 rounding of the biased value and, in bf16, one bf16
+    spacing (2^-7 of the value at most)."""
+    k = wq.shape[0]
+    terms = x.to(torch.bfloat16).float().abs() @ wq.float().abs()
+    tol = 2 * k ** 0.5 * 2.0 ** -24 * terms * ws + 2.0 ** -23 * ref.abs()
+    return tol + 2.0 ** -7 * ref.abs() if out_dtype == torch.bfloat16 else tol
+
+
+@pytest.mark.parametrize("out_dtype, bias_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, None), (torch.float32, torch.float32),
+], ids=["proj_bf16", "head_f32", "f32_bias"])
+@pytest.mark.parametrize("m, k, n", INT8_SHAPES)
+def test_int8_matmul_kernel_epilogue_matches_plain(cuda, m, k, n, out_dtype, bias_dtype):
+    """The fused epilogue (scale, bias in f32, one rounding) at the main
+    path's shapes and ragged ones: within tolerance of the plain version,
+    the same bits on a second run, one launch per product."""
+    x, wq, ws, b = _int8_case(cuda, m, k, n, bias_dtype)
+    before = quant_ops.int8_matmul.launches
+    out = quant_ops.int8_matmul(x, wq, ws, b, out_dtype)
+    again = quant_ops.int8_matmul(x, wq, ws, b, out_dtype)
+    torch.cuda.synchronize()
+    assert quant_ops.int8_matmul.launches == before + 2
+    assert out.dtype == out_dtype and out.shape == (m, n)
+    assert torch.equal(out, again)
+    ref = quant_ops.int8_matmul_reference(x, wq, ws, b, torch.float32)
+    diff = (out.float() - ref).abs()
+    assert bool(torch.isfinite(out).all())
+    assert bool((diff <= _int8_tol(x, wq, ws, ref, out_dtype) + 1e-30).all()), diff.max().item()
+
+
+# (K, N) at which the decode kernel's plan takes each cluster size on 132 SMs
+INT8_CLUSTER_SHAPES = {1: (1280, 8448), 2: (1280, 5120), 3: (192, 1280), 4: (1280, 2560),
+                       5: (640, 1280), 6: (384, 1280), 7: (1280, 1280), 8: (5120, 1280)}
+
+
+@pytest.mark.parametrize("cluster", sorted(INT8_CLUSTER_SHAPES))
+@pytest.mark.parametrize("m", [16, 80, 128])
+def test_int8_matmul_kernel_every_cluster_size(cuda, m, cluster):
+    """The decode kernel at each cluster size its plan can take, reached
+    through the shape: against the plain version and against the emulation
+    of its split (partial sums of the ranks' K slices added in rank order),
+    equal bits twice."""
+    k, n = INT8_CLUSTER_SHAPES[cluster]
+    x, wq, ws, b = _int8_case(cuda, m, k, n, torch.bfloat16)
+    plan = quant_ops.plan(m, k, n)
+    assert plan["route"] == 1 and plan["cols"] == 64 and plan["cluster"] == cluster, plan
+    assert (cluster - 1) * plan["k_slice"] < k <= cluster * plan["k_slice"], plan
+    out = quant_ops.int8_matmul(x, wq, ws, b, torch.float32)
+    again = quant_ops.int8_matmul(x, wq, ws, b, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    ref = quant_ops.int8_matmul_reference(x, wq, ws, b, torch.float32)
+    tol = _int8_tol(x, wq, ws, ref, torch.float32)
+    assert bool(((out - ref).abs() <= tol + 1e-30).all())
+    emu = quant_ops.int8_matmul_split_emulation(x, wq, ws, b, torch.float32,
+                                                k_slice=plan["k_slice"])
+    assert bool(((out - emu).abs() <= tol + 1e-30).all())
+
+
+@pytest.mark.parametrize("m, k, n", [(80, 1280, 1280), (80, 5120, 1280), (80, 1280, 51968)])
+def test_int8_tolerance_rejects_lower_precision(cuda, m, k, n):
+    """The tolerance the kernel is held to fails a product that keeps less
+    than f32: the plain version's output rounded to bf16, and the JAX
+    package's other branch (code x scale rounded to bf16 before the sum)."""
+    x, wq, ws, _ = _int8_case(cuda, m, k, n, None)
+    ref = quant_ops.int8_matmul_reference(x, wq, ws)
+    tol = _int8_tol(x, wq, ws, ref, torch.float32)
+    rounded = ref.to(torch.bfloat16).float()
+    other = x.float() @ (wq.float() * ws).to(torch.bfloat16).float()
+    for control in (rounded, other):
+        assert not bool(((control - ref).abs() <= tol).all())
+
+
+def test_int8_decoder_pass_makes_one_launch_per_product(cuda):
+    """One int8 decoder pass of large-v3-turbo (4 layers, 80 rows: 16
+    windows x 5 beams) launches the kernel 33 times (8 projections per
+    layer and the head) and nothing else of it: no reduction kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from modular_audio_pipeline_tpu_torch.models.whisper.config import WHISPER_DIMS
+    from modular_audio_pipeline_tpu_torch.models.whisper.model import (
+        KVCache, cross_kv, decoder_forward, init_params,
+    )
+
+    dims = WHISPER_DIMS["large-v3-turbo"]
+    params = quant_ops.quantize_decoder(init_params(dims, cuda, torch.bfloat16, device="cuda"))
+    del params["encoder"]
+    xa = torch.randn((80, dims.n_audio_ctx, dims.n_audio_state), generator=cuda,
+                     device="cuda").to(torch.bfloat16)
+    xk, xv = cross_kv(params, dims, xa)
+    del xa
+    cache = KVCache.zeros(dims, 80, torch.bfloat16, ctx=8, quant=True, device="cuda")
+    tokens = torch.full((80, 1), 50258, device="cuda")
+    decoder_forward(params, dims, tokens, xk, xv, cache)  # warm-up
+    cache.pos = 0
+    torch.cuda.synchronize()
+    before = quant_ops.int8_matmul.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        logits, _ = decoder_forward(params, dims, tokens, xk, xv, cache)
+        torch.cuda.synchronize()
+    assert quant_ops.int8_matmul.launches - before == 8 * dims.n_text_layer + 1 == 33
+    names = [(e.key, e.count) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and "int8_matmul" in e.key]
+    assert sum(n for _, n in names) == 33, names
+    assert not any("reduce" in k for k, _ in names), names
+    assert logits.shape[0] == 80 and bool(torch.isfinite(logits).all())
 
 
 def _to_cuda(tree):

@@ -7,8 +7,10 @@ checked here is that the steps they take, written out in plain PyTorch
 (``flash_arithmetic_emulation``: key tiles, online max and sum, unnormalised
 probabilities rounded before PV; ``ancestor_attention_split_emulation``:
 positions in chunks, a global max and sum, weights rounded once after
-normalisation, partial PV sums added in chunk order), give the JAX
-functions' results on the same inputs. Inputs are made with numpy from a
+normalisation, partial PV sums added in chunk order;
+``int8_matmul_split_emulation``: one f32 partial sum per K slice of a
+cluster rank, added in rank order, then scale, bias and one rounding),
+give the JAX functions' results on the same inputs. Inputs are made with numpy from a
 seed and handed to both.
 """
 
@@ -20,8 +22,10 @@ import torch
 
 from modular_audio_pipeline_tpu.ops import ancestor_attention as jax_anc
 from modular_audio_pipeline_tpu.ops import attention as jax_attn
+from modular_audio_pipeline_tpu.ops import quant as jax_quant
 from modular_audio_pipeline_tpu_torch.ops import ancestor_attention as pt_anc
 from modular_audio_pipeline_tpu_torch.ops import attention as pt_attn
+from modular_audio_pipeline_tpu_torch.ops import quant as pt_quant
 from test_torch_model import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_ops import _anc_case, _jopt, _new_rows, _np, _opt, _t
 
@@ -137,3 +141,70 @@ def test_ancestry_split_arithmetic_f32_matches_jax_reference(has_new, split):
         _t(q), _t(ck), _t(cv), _t(ks), _t(vs), layer, _t(anc), _t(mask), *map(_opt, new),
         pos if has_new else None, split=split).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _int8_tol(k, terms, mag, bf16_out):
+    """The tolerance of chip_smoke.py phase 3b: two f32 summation orders of
+    the same exact products, 2 sqrt(K) 2^-24 of the sum of the terms'
+    magnitudes times the scale (``terms``), plus one f32 rounding of the
+    biased value and, in bf16, one bf16 spacing."""
+    tol = 2 * k ** 0.5 * 2.0 ** -24 * terms + 2.0 ** -23 * mag
+    return tol + 2.0 ** -7 * mag if bf16_out else tol
+
+
+def _int8_case(m, k, n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32).astype(ml_dtypes.bfloat16)
+    w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+    b = (rng.standard_normal(n) * 0.5).astype(np.float32).astype(ml_dtypes.bfloat16)
+    jq, js = jax_quant.quantize_weight(jnp.asarray(w))
+    y = jax_quant.int8_matmul(jnp.asarray(x), jq, js, interpret=True)
+    tq, ts = _t(np.asarray(jq)), _t(np.asarray(js))
+    terms = (_t(x).float().abs() @ tq.float().abs() * ts).numpy()
+    return x, b, y, tq, ts, terms
+
+
+@pytest.mark.parametrize("epilogue", ["f32", "bf16_bias"])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("m, k, n", [(80, 1280, 512), (16, 512, 1024), (5, 256, 512)],
+                         ids=["decode_step", "language_pass", "few_rows"])
+def test_int8_split_emulation_matches_pallas_kernel(m, k, n, splits, epilogue):
+    """The int8 product split along K into ``splits`` slices, as the decode
+    kernel splits it over a cluster, against the Pallas kernel in interpret
+    mode (plus the JAX ``_proj``'s bias and cast for ``bf16_bias``). Only
+    the order of f32 sums differs."""
+    x, b, y, tq, ts, terms = _int8_case(m, k, n, 40 + splits)
+    if epilogue == "f32":
+        want = np.asarray(y)
+        got = pt_quant.int8_matmul_split_emulation(_t(x), tq, ts, k_slice=k // splits)
+        assert got.dtype == torch.float32
+    else:
+        want = np.asarray((y + jnp.asarray(b).astype(jnp.float32)).astype(jnp.bfloat16),
+                          np.float32)
+        got = pt_quant.int8_matmul_split_emulation(_t(x), tq, ts, _t(b), torch.bfloat16,
+                                                   k_slice=k // splits)
+        assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    mag = np.maximum(np.abs(got), np.abs(want))
+    tol = _int8_tol(k, terms, mag, epilogue != "f32")
+    assert (np.abs(got - want) <= tol).all(), np.abs(got - want).max()
+    # and the plain version the kernel is held to on the card, in f32
+    ref = pt_quant.int8_matmul_reference(_t(x), tq, ts).numpy()
+    acc32 = pt_quant.int8_matmul_split_emulation(_t(x), tq, ts, k_slice=k // splits).numpy()
+    assert (np.abs(acc32 - ref) <= 2 * k ** 0.5 * 2.0 ** -24 * terms).all()
+
+
+@pytest.mark.parametrize("k, k_slice, slices", [
+    (1280, 192, 7), (1280, 640, 2), (640, 128, 5), (384, 64, 6), (5120, 768, 7), (256, 64, 4),
+], ids=["proj_7", "proj_2", "k640_5", "k384_6", "fc2_7", "k256_4"])
+def test_int8_split_emulation_ragged_last_slice(k, k_slice, slices):
+    """Slices of whole 64-row pipeline stages, as the decode kernel's plan
+    takes them, with a shorter last slice where K does not divide: as many
+    partial sums as slices, their sum within the f32 tolerance of the
+    Pallas kernel in interpret mode."""
+    assert -(-k // k_slice) == slices and k_slice % 64 == 0
+    x, _, y, tq, ts, terms = _int8_case(8, k, 512, k_slice)
+    got = pt_quant.int8_matmul_split_emulation(_t(x), tq, ts, k_slice=k_slice).numpy()
+    want = np.asarray(y)
+    tol = _int8_tol(k, terms, np.maximum(np.abs(got), np.abs(want)), False)
+    assert (np.abs(got - want) <= tol).all(), np.abs(got - want).max()

@@ -260,3 +260,127 @@ def test_quantised_logits_close_to_unquantised():
     a, b = outs[0].ravel(), outs[1].ravel()
     assert (a * b).sum() / (np.linalg.norm(a) * np.linalg.norm(b)) > 0.999
     np.testing.assert_array_equal(outs[0][0, -1].argmax(), outs[1][0, -1].argmax())
+
+
+# -- the fused epilogue: scale, bias in f32, one rounding ---------------------
+
+def _bf16(a):
+    import ml_dtypes
+
+    return np.asarray(a, np.float32).astype(ml_dtypes.bfloat16)
+
+
+def _proj_tolerance(x, q, s, k, want, got, bf16_out):
+    """Two f32 summation orders over K terms: 2 sqrt(K) 2^-24 of the sum of
+    the terms' magnitudes, times the scale (the tolerance of the kernel
+    check on the card), plus one f32 rounding of the biased value, plus,
+    for a bf16 result, one bf16 spacing (at most 2^-7 of the larger of the
+    two values): two f32 values that differ by that little may round to
+    neighbouring bf16 values."""
+    xb = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16).float().abs()
+    terms = ((xb @ torch.from_numpy(np.asarray(q)).float().abs()) * torch.from_numpy(
+        np.asarray(s))).numpy()
+    mag = np.maximum(np.abs(np.asarray(want, np.float32)), np.abs(np.asarray(got, np.float32)))
+    tol = 2 * k ** 0.5 * 2.0 ** -24 * terms + 2.0 ** -23 * mag
+    if not bf16_out:
+        return tol
+    return tol + 2.0 ** -7 * mag
+
+
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("out", ["bf16", "f32"])
+@pytest.mark.parametrize("m, k, n", [(8, 256, 512), (80, 128, 1024), (3, 64, 200), (7, 96, 40)],
+                         ids=["kernel_tiling", "decode_rows", "ragged", "ragged_narrow"])
+def test_int8_matmul_epilogue_matches_jax_proj(m, k, n, out, with_bias):
+    """``int8_matmul_reference(x, wq, ws, bias, out_dtype)`` against the
+    JAX ``_proj`` arithmetic on the same inputs: the product (the Pallas
+    kernel in interpret mode where its tiling takes the shape, else its
+    arithmetic written in jnp), plus ``bias.astype(f32)``, then
+    ``astype(y.dtype)``. x and the bias are in the output's type, as in the
+    model (the head alone keeps f32 out with bf16 x)."""
+    rng = np.random.default_rng(20 + m)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+    b = (rng.standard_normal(n) * 0.5).astype(np.float32)
+    if out == "bf16":
+        x, b = _bf16(x), _bf16(b)
+    jq, js = jax_quant.quantize_weight(jnp.asarray(w))
+    jx = jnp.asarray(x)
+    tiled = n % 512 == 0 and k % 128 == 0
+    y = (jax_quant.int8_matmul(jx, jq, js, interpret=True) if tiled
+         else _kernel_arithmetic(jx, jq, js))
+    if with_bias:
+        y = y + jnp.asarray(b).astype(jnp.float32)
+    want = np.asarray(y.astype(jx.dtype))
+
+    tq, ts = torch.from_numpy(np.asarray(jq)), torch.from_numpy(np.asarray(js))
+    tx = torch.from_numpy(np.asarray(x, np.float32))
+    dtype = torch.bfloat16 if out == "bf16" else torch.float32
+    tx = tx.to(dtype)
+    tb = torch.from_numpy(np.asarray(b, np.float32)).to(dtype) if with_bias else None
+    got = pt_quant.int8_matmul_reference(tx, tq, ts, tb, dtype)
+    assert got.dtype == dtype and tuple(got.shape) == (m, n)
+    # the wrapper runs exactly this on a CPU tensor
+    assert torch.equal(pt_quant.int8_matmul(tx, tq, ts, tb, dtype), got)
+    got32, want32 = got.float().numpy(), np.asarray(want, np.float32)
+    tol = _proj_tolerance(x, jq, js, k, want32, got32, out == "bf16")
+    assert (np.abs(got32 - want32) <= tol).all(), np.abs(got32 - want32).max()
+
+
+def _spy(monkeypatch, calls):
+    real = pt_model.int8_matmul
+
+    def spy(x, wq, ws, bias=None, out_dtype=torch.float32):
+        calls.append({"x_dtype": x.dtype, "wq": wq, "bias": bias, "out_dtype": out_dtype})
+        return real(x, wq, ws, bias, out_dtype)
+
+    monkeypatch.setattr(pt_model, "int8_matmul", spy)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name, has_bias", [("q", True), ("k", False)])
+def test_proj_makes_one_int8_matmul_call(monkeypatch, name, has_bias, dtype):
+    """With int8 weights, ``_proj`` is one ``int8_matmul`` call that gets the
+    bias and y's type, and returns its result untouched: no separate bias
+    add or cast after the kernel."""
+    rng = np.random.default_rng(30)
+    w = torch.from_numpy((rng.standard_normal((64, 48)) * 0.1).astype(np.float32))
+    wq, ws = pt_quant.quantize_weight(w)
+    mod = {f"{name}_wq": wq, f"{name}_ws": ws}
+    if has_bias:
+        mod[f"{name}_b"] = torch.from_numpy(rng.standard_normal(48).astype(np.float32)).to(dtype)
+    y = torch.from_numpy(rng.standard_normal((2, 3, 64)).astype(np.float32)).to(dtype)
+    calls = []
+    _spy(monkeypatch, calls)
+    got = pt_model._proj(y, mod, name)
+    assert len(calls) == 1
+    assert calls[0]["wq"] is wq and calls[0]["out_dtype"] == dtype
+    assert calls[0]["bias"] is mod.get(f"{name}_b")
+    assert got.dtype == dtype and tuple(got.shape) == (2, 3, 48)
+    want = pt_quant.int8_matmul_reference(y, wq, ws, mod.get(f"{name}_b"), dtype)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_int8_decoder_pass_calls_the_kernel_once_per_product(monkeypatch, dtype):
+    """One quantised decoder pass: 8 products per layer (self q, k, v, o,
+    cross q, o, fc1, fc2), each with its bias (self-attention k has none)
+    and the activations' type, and the head with neither, in f32."""
+    params = pt_quant.quantize_decoder(
+        pt_model.init_params(PT, torch.Generator().manual_seed(31), dtype))
+    mel = torch.from_numpy(
+        np.random.default_rng(32).standard_normal((1, PT.n_mels, 3000)).astype(np.float32))
+    xa = pt_model.encoder_forward(params, PT, mel.to(dtype))
+    xk, xv = pt_model.cross_kv(params, PT, xa)
+    cache = pt_model.KVCache.zeros(PT, 1, dtype, ctx=8)
+    calls = []
+    _spy(monkeypatch, calls)
+    logits, _ = pt_model.decoder_forward(params, PT, torch.tensor([[50258, 50259, 50359]]),
+                                         xk, xv, cache)
+    assert len(calls) == 8 * PT.n_text_layer + 1
+    *proj, head = calls
+    assert head["bias"] is None and head["out_dtype"] == torch.float32
+    assert head["wq"] is params["decoder"]["logits_wq"] and logits.dtype == torch.float32
+    assert all(c["out_dtype"] == dtype and c["x_dtype"] == dtype for c in proj)
+    assert sum(c["bias"] is None for c in proj) == PT.n_text_layer  # self-attention k
+    assert all(c["bias"] is None or c["bias"].dtype == dtype for c in proj)
