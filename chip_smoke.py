@@ -17,7 +17,12 @@ Phases (any failure exits non-zero and prints no result line):
    head dim 32 and in f32, each run twice for equal bits; with the kernel's,
    the plain version's and ``scaled_dot_product_attention``'s times (the
    latter only as a yardstick; the port never calls it) beside its three
-   bounds (tensor-core operations, exponentials, bytes).
+   bounds (tensor-core operations, exponentials, bytes). Then the kernel's
+   SIMT route in f32 at head dim 32, where SegmentationNet calls it: at
+   [32, 4, 1000, 32] and a ragged [2, 4, 1001, 32] within ``FLASH_TOL_F32``
+   with equal bits twice, and timed at a 512-window chunk [512, 4, 1000,
+   32] beside the plain version and ``scaled_dot_product_attention`` in
+   f32, against a bound from the f32 CUDA-core peak.
 3. The ancestry-attention kernel against its plain version at the decode
    shape (16 windows x 5 beams, 20 heads, ctx 448, hd 64), int8 and bf16
    caches, with this step's rows written at the last position: the output
@@ -57,6 +62,22 @@ Phases (any failure exits non-zero and prints no result line):
    bundle: the int8 decoder through its kernel against its plain version,
    word timestamps inside their segments, the temperature ladder walked to
    its last rung twice with equal results, and language detection.
+6. The serving path, the main path: ``ServingPipeline.process`` at
+   bench.py's configuration (large-v3-turbo, random weights, beam 5, 224
+   tokens, batch 16, int8 KV cache, DTW words, no-speech gate off, the
+   default denoise, shipped ConvVAD and diarization bundles) on the
+   8-minute file as int16, one warm-up and one timed run (launch counts
+   reset just before and read just after), then one profiled run. It
+   fails unless the VAD is the ConvVAD and the diarizer holds ConvEmbedder
+   + SegmentationNet, there are segments and turns, the decode covered
+   ceil(kept / 30 s) windows, the mappings are monotone and inside the
+   file, the flash kernel launched more often than the encoder alone
+   would (segmentation ran it) and the ancestry kernel launched. Then
+   ``run_file``'s JSON (the merged segments' keys), the proxy bundle's
+   sentences in one file through the kernels and through the plain
+   versions (equal keep intervals and turns, segments as in phase 5,
+   ``original_start``/``original_end`` with merging off), and the ConvVAD
+   and ConvEmbedder on the card against the CPU.
 
 Float32 products run in full f32 (TF32 off for matmuls and cuDNN
 convolutions). The last lines are the card, the per-kernel JSON line and
@@ -78,6 +99,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 PROXY = ROOT / "modular_audio_pipeline_tpu" / "weights" / "whisper-tiny-synth-proxy"
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 SR = 16000
 
@@ -205,13 +227,54 @@ def phase_flash(torch):
         f"bytes {bytes_ms:.4f} ms: {binds} bind")
     if exp_ms > bound_ms:  # the special-function unit's operations
         bound_ms, bound_by = exp_ms, "operations"
+    del q, k, v
+    torch.cuda.empty_cache()
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "modular_audio_pipeline_tpu_torch/csrc/flash_attention.cu",
         "replaces": "modular_audio_pipeline_tpu/ops/attention.py:60",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": lib_ms,
+        "segmentation": phase_flash_segmentation(torch, check),
     }
+
+
+SEG_SHAPE = (512, 4, 1000, 32)  # SegmentationNet: a chunk of 512 windows, 4 heads of 32
+
+
+def phase_flash_segmentation(torch, check):
+    """The kernel's SIMT route in f32 at head dim 32, where SegmentationNet
+    calls it: against the plain version at a 32-window chunk and at a ragged
+    sequence length, equal bits twice; timed at a 512-window chunk beside
+    the plain version and ``scaled_dot_product_attention`` in f32. Its
+    bound takes the f32 CUDA-core peak (TF32 would change the arithmetic
+    the JAX package does), the exponentials and the bytes."""
+    import torch.nn.functional as F
+
+    from modular_audio_pipeline_tpu_torch.ops.attention import attention_reference, flash_attention
+
+    check((32, 4, 1000, 32), torch.float32, FLASH_TOL_F32)
+    check((2, 4, 1001, 32), torch.float32, FLASH_TOL_F32)
+    q, k, v, err = check(SEG_SHAPE, torch.float32, FLASH_TOL_F32)
+    ms = graph_ms([lambda: flash_attention(q, k, v)] * 2, reps=3)
+    plain_ms = time_ms(lambda: attention_reference(q, k, v), 2, warmup=1)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 5)
+    b, h, s, d = SEG_SHAPE
+    n_bytes = 4 * q.numel() * q.element_size()
+    ops_ms = 4.0 * b * h * s * s * d / PEAK_F32_FLOPS * 1e3
+    exp_ms = b * h * s * s / exp_rate(torch) * 1e3
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    bound_ms, bound_by = bound(n_bytes, 4.0 * b * h * s * s * d, PEAK_F32_FLOPS)
+    if exp_ms > bound_ms:
+        bound_ms, bound_by = exp_ms, "operations"
+    log(f"flash f32 {SEG_SHAPE} (segmentation): kernel {ms:.3f} ms on the device, plain "
+        f"{plain_ms:.3f} ms, sdpa f32 {lib_ms:.3f} ms; bounds: f32 operations {ops_ms:.3f} ms, "
+        f"exponentials {exp_ms:.3f} ms, bytes {bytes_ms:.4f} ms")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"shape": list(SEG_SHAPE), "dtype": "float32", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms}
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -725,7 +788,8 @@ def device_breakdown(torch, fn, label: str, top: int = 8):
     for name, ms, n in rows[:top]:
         log(f"  device {ms:9.1f} ms  x{n:<6d} {name[:90]}")
     mine = {}
-    for kernel in ("flash_fwd_tc", "scale_rows", "ancestor_attention_kernel", "int8_matmul_decode",
+    for kernel in ("flash_fwd_tc", "flash_fwd_simt", "scale_rows", "ancestor_attention_kernel",
+                   "int8_matmul_decode",
                    "int8_matmul_wide", "int8_matmul_generic", "int8_matmul"):
         hits = [(ms, n) for name, ms, n in rows if kernel in name]
         mine[kernel] = (sum(h[0] for h in hits), sum(h[1] for h in hits))
@@ -776,19 +840,24 @@ def _synth_sentence(words, rng) -> np.ndarray:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Bind the model's three kernel calls to their plain versions."""
+    """Bind the models' kernel calls (Whisper's three, SegmentationNet's
+    flash attention) to their plain versions."""
+    from modular_audio_pipeline_tpu_torch.models.diarization import segmentation
     from modular_audio_pipeline_tpu_torch.models.whisper import model
     from modular_audio_pipeline_tpu_torch.ops.ancestor_attention import ancestor_attention_reference
     from modular_audio_pipeline_tpu_torch.ops.attention import attention_reference
     from modular_audio_pipeline_tpu_torch.ops.quant import int8_matmul_reference
 
-    saved = model.flash_attention, model.ancestor_attention, model.int8_matmul
+    saved = (model.flash_attention, model.ancestor_attention, model.int8_matmul,
+             segmentation.flash_attention)
     model.flash_attention, model.ancestor_attention = attention_reference, ancestor_attention_reference
     model.int8_matmul = int8_matmul_reference
+    segmentation.flash_attention = attention_reference
     try:
         yield
     finally:
-        model.flash_attention, model.ancestor_attention, model.int8_matmul = saved
+        (model.flash_attention, model.ancestor_attention, model.int8_matmul,
+         segmentation.flash_attention) = saved
 
 
 def _agreement(kernel, plain) -> float:
@@ -902,6 +971,213 @@ def phase_proxy(torch, tmp: Path):
             "ladder_rungs": walked[:6], "language": lang}
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+VAD_TOL = 1e-5  # ConvVAD probabilities, the CPU tests' tolerance (f32, TF32 off)
+EMB_TOL = 1e-5  # ConvEmbedder embeddings, likewise
+
+
+def proxy_file(rng) -> np.ndarray:
+    """The proxy's two held-out sentences in one file: 1 s of silence, a
+    sentence, 2 s of silence, the other sentence, 1 s of silence (as
+    tests/test_torch_serving.py builds it)."""
+    gap = np.zeros(2 * SR, np.float32)
+    edge = np.zeros(SR, np.float32)
+    sentences = []
+    for _ in range(2):
+        k = int(rng.integers(12, 27))
+        sentences.append(_synth_sentence(list(rng.integers(0, len(_VOCAB), size=k)), rng))
+    return np.concatenate([edge, sentences[0], gap, sentences[1], edge])
+
+
+def serving_config(model: str, weights: str, tokens: int, words: bool):
+    from modular_audio_pipeline_tpu_torch.config import PipelineConfig
+
+    cfg = PipelineConfig(lazy_load_models=False)
+    t = cfg.transcription
+    t.model, t.language, t.weights_path = model, "en", weights
+    t.beam_size, t.max_decode_tokens, t.batch_size = 5, tokens, 16
+    t.kv_cache_dtype, t.word_timestamps = "int8", words
+    t.no_speech_threshold = None  # every window is parsed, as bench.py
+    return cfg
+
+
+def _check_serving(result, seconds: float, label: str) -> None:
+    """The mappings are monotone and inside the file, the decode covered
+    every 30 s of the kept timeline, segments are well formed."""
+    import math
+
+    kept = result["kept_duration"]
+    if not 0.0 < kept <= seconds:
+        raise AssertionError(f"{label}: kept {kept} s of {seconds} s")
+    if result["decode_stats"]["n_windows"] != math.ceil(kept / 30.0):
+        raise AssertionError(f"{label}: {result['decode_stats']} for {kept} s kept")
+    prev_p, prev_o = 0.0, 0.0
+    for m in result["timestamp_mappings"]:
+        if not (abs(m.processed_start - prev_p) < 1e-6 and prev_o <= m.original_start
+                < m.original_end <= seconds + 1e-6):
+            raise AssertionError(f"{label}: mapping out of order or outside the file: {m}")
+        prev_p, prev_o = m.processed_end, m.original_end
+    if abs(prev_p - kept) > 1e-3:
+        raise AssertionError(f"{label}: mappings cover {prev_p} s of {kept} s kept")
+    for s in result["segments"]:
+        if not (0.0 <= s["start"] <= s["end"] <= kept + 1e-6 and isinstance(s["text"], str)):
+            raise AssertionError(f"{label}: malformed segment {s}")
+    for d in result["diarization"]:
+        if not (d["speaker"].startswith("SPEAKER_") and 0.0 <= d["start"] < d["end"] <= kept + 1e-6):
+            raise AssertionError(f"{label}: malformed turn {d}")
+
+
+def phase_serving(torch, tmp: Path, seconds: float):
+    """The main path: ServingPipeline.process at full width (bench.py's
+    configuration) on the 8-minute file as int16, with the trained ConvVAD
+    and diarization stack; then run_file's JSON, the proxy file through the
+    kernels and the plain versions, and the ConvVAD and ConvEmbedder on the
+    card against the CPU."""
+    from modular_audio_pipeline_tpu_torch.models.diarization.embedding import ConvEmbedder
+    from modular_audio_pipeline_tpu_torch.models.diarization.segmentation import SegmentationNet
+    from modular_audio_pipeline_tpu_torch.models.vad_net import ConvVAD
+    from modular_audio_pipeline_tpu_torch.serving import ServingPipeline
+
+    audio = np.round(bench_audio(seconds) * 32768.0).astype(np.int16)
+    t0 = time.perf_counter()
+    pipe = ServingPipeline(serving_config("large-v3-turbo", "random:0", 224, True), device="cuda")
+    pipe.backend.load()
+    torch.cuda.synchronize()
+    log(f"serving: random large-v3-turbo loaded in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pipe.process(audio, SR)
+    torch.cuda.synchronize()
+    log(f"serving: warm-up run {time.perf_counter() - t0:.2f} s")
+
+    wrappers = _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = pipe.process(audio, SR)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    stages = dict(pipe.last_timings)
+    ds = result["decode_stats"]
+    log(f"serving: wall {wall:.3f} s, realtime x{seconds / wall:.1f}, kept "
+        f"{result['kept_duration']:.3f} s, decode {ds}, segments {len(result['segments'])}, "
+        f"turns {len(result['diarization'])}, launches {launches}, host seconds by stage "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+
+    if not isinstance(pipe._vad_model, ConvVAD):
+        raise AssertionError(f"serving: the VAD resolved to {pipe._vad_model!r}, not the ConvVAD")
+    dz = pipe._diarizer
+    if (dz is None or dz._use_noop or not isinstance(dz._embedder, ConvEmbedder)
+            or not isinstance(dz._segmentation, SegmentationNet)):
+        raise AssertionError("serving: the diarizer did not load ConvEmbedder + SegmentationNet")
+    if not result["segments"] or not result["diarization"]:
+        raise AssertionError("serving: no segment or no diarization turn")
+    _check_serving(result, seconds, "serving")
+    n_batches = len(range(0, ds["n_windows"], pipe.backend.batch_size))
+    encoder = pipe.backend.dims.n_audio_layer * n_batches
+    if launches["flash_attention"] <= encoder:
+        raise AssertionError(f"serving: {launches['flash_attention']} flash launches, the encoder's "
+                             f"alone are {encoder}: segmentation did not run the kernel")
+    if launches["ancestor_attention"] <= 0:
+        raise AssertionError(f"serving: the ancestry kernel was not launched: {launches}")
+    log(f"serving: flash launches {launches['flash_attention']} = encoder {encoder} + "
+        f"segmentation {launches['flash_attention'] - encoder}")
+    busy, top, mine = device_breakdown(torch, lambda: pipe.process(audio, SR), "serving")
+
+    # run_file: the JSON the JAX package writes, key for key
+    wav = tmp / "serving.wav"
+    from modular_audio_pipeline_tpu_torch.audio_io import write_wav
+
+    write_wav(str(wav), audio.astype(np.float32) / 32768.0, SR)
+    out = pipe.run_file(str(wav), str(tmp / "results"))
+    if not out.success:
+        raise AssertionError(f"serving: run_file failed: {out.error}")
+    doc = json.loads(Path(out.output_file).read_text())
+    if set(doc["metadata"]["config"]) != {"model", "language", "vad_provider",
+                                          "transcription_backend"} or not doc["segments"]:
+        raise AssertionError(f"serving: run_file JSON metadata {doc['metadata']}")
+    for seg in doc["segments"]:  # merged segments: speaker, start, end, track, text
+        if set(seg) != {"speaker", "start", "end", "track", "text"} or not seg["text"]:
+            raise AssertionError(f"serving: run_file segment {seg}")
+    log(f"serving: run_file wrote {len(doc['segments'])} merged segments in "
+        f"{out.metadata['wall_time_s']} s")
+
+    proxy = phase_serving_proxy(torch, tmp)
+    return launches, {"wall_s": wall, "realtime_x": seconds / wall,
+                      "kept_duration": result["kept_duration"], "decode_stats": ds,
+                      "segments": len(result["segments"]), "turns": len(result["diarization"]),
+                      "host_s_by_stage": stages, "device_busy_share": busy,
+                      "top_kernels_ms": top, "flash_simt_ms": mine["flash_fwd_simt"][0],
+                      "run_file_segments": len(doc["segments"]), "proxy": proxy}
+
+
+def phase_serving_proxy(torch, tmp: Path):
+    """The proxy bundle's file through ServingPipeline (word timestamps
+    off, segment merging off) once with the kernels and once with the
+    plain versions: equal keep intervals and turns, segments as in phase
+    5; run_file's segments carry original_start/original_end (merging
+    drops them, in both packages). Then the ConvVAD's probabilities and the
+    ConvEmbedder's embeddings on the card against the CPU."""
+    from modular_audio_pipeline_tpu_torch.audio_io import write_wav
+    from modular_audio_pipeline_tpu_torch.serving import ServingPipeline
+
+    audio = proxy_file(np.random.default_rng(500_000))
+    seconds = len(audio) / SR
+    cfg = serving_config("tiny", str(PROXY), 128, False)
+    cfg.segment_merging.enabled = False
+    pipe = ServingPipeline(cfg, device="cuda")
+    kernel = pipe.process(audio, SR)
+    with plain_kernels():
+        plain = pipe.process(audio, SR)
+    for key in ("timestamp_mappings", "diarization", "kept_duration"):
+        if kernel[key] != plain[key]:
+            raise AssertionError(f"serving proxy: {key} differs between kernels and plain versions")
+    agree = _agreement([kernel["segments"]], [plain["segments"]])
+    log(f"serving proxy: {seconds:.2f} s, kept {kernel['kept_duration']:.3f} s, "
+        f"{len(kernel['segments'])} segments, {len(kernel['diarization'])} turns; segment "
+        f"agreement kernels vs plain {agree:.3f}; text '{kernel['text'][:80]}'")
+    if not kernel["segments"] or not kernel["diarization"]:
+        raise AssertionError("serving proxy: no segment or no turn")
+    _check_serving(kernel, seconds, "serving proxy")
+
+    wav = tmp / "proxy.wav"
+    write_wav(str(wav), audio, SR)
+    out = pipe.run_file(str(wav), str(tmp / "results"))
+    if not out.success or not out.segments:
+        raise AssertionError(f"serving proxy: run_file failed: {out.error}")
+    for seg in out.segments:
+        if not (set(seg) == {"speaker", "start", "end", "text", "original_start", "original_end"}
+                and 0.0 <= seg["original_start"] <= seg["original_end"] <= seconds + 1e-6):
+            raise AssertionError(f"serving proxy: run_file segment {seg}")
+
+    # the f32 convolutions on the card (TF32 off) against the CPU
+    from modular_audio_pipeline_tpu_torch.models.vad_net import ConvVAD
+    from modular_audio_pipeline_tpu_torch.vad import load_vad_model
+
+    gpu_vad, _ = load_vad_model(device="cuda")
+    cpu_vad, _ = load_vad_model(device="cpu")
+    x = torch.from_numpy(bench_audio(60.0))
+    feats = ConvVAD.features(x)
+    p_gpu = gpu_vad(feats.cuda()).cpu()
+    p_cpu = cpu_vad(feats)
+    vad_err = (p_gpu - p_cpu).abs().max().item()
+    emb_gpu = pipe._diarizer._embedder
+    from modular_audio_pipeline_tpu_torch.models.diarization.embedding import ConvEmbedder
+    from modular_audio_pipeline_tpu_torch.models.whisper.convert import unflatten_tree
+
+    with np.load(ROOT / "modular_audio_pipeline_tpu/weights/diarization-embedding/params.npz") as z:
+        emb_cpu = ConvEmbedder(unflatten_tree({k: z[k] for k in z.files}), device="cpu")
+    spans = x[: 32 * 24000].reshape(32, 24000)
+    emb_err = float(np.abs(emb_gpu.embed(spans.cuda()) - emb_cpu.embed(spans)).max())
+    log(f"serving: ConvVAD card vs CPU max_abs_err {vad_err:.2e} (tol {VAD_TOL}), "
+        f"ConvEmbedder {emb_err:.2e} (tol {EMB_TOL})")
+    if not (vad_err <= VAD_TOL and emb_err <= EMB_TOL):
+        raise AssertionError("serving: ConvVAD or ConvEmbedder on the card disagrees with the CPU")
+    return {"segment_agreement": agree, "kept_duration": kernel["kept_duration"],
+            "segments": len(kernel["segments"]), "turns": len(kernel["diarization"]),
+            "conv_vad_max_abs_err": vad_err, "conv_embedder_max_abs_err": emb_err}
+
+
 def main() -> int:
     try:
         import torch
@@ -951,15 +1227,23 @@ def main() -> int:
         t0 = time.perf_counter()
         proxy = phase_proxy(torch, Path(d))
         log(f"phase 5 done in {time.perf_counter() - t0:.1f} s")
-    # each kernel's count from the path that brought it: phase 4 for the
-    # flash and ancestry kernels, phase 4b (which runs all three) for int8
+        t0 = time.perf_counter()
+        launches_serving, serving = phase_serving(torch, Path(d), seconds)
+        torch.cuda.empty_cache()
+        log(f"phase 6 done in {time.perf_counter() - t0:.1f} s")
+    # each kernel's count from the main path that brings it: phase 6 (the
+    # serving path) for the flash and ancestry kernels, phase 4b (the one
+    # path with compute_type="int8") for the int8 product; each must also
+    # have launched in phase 4 (flash, ancestry) or 4b (all three)
     for k in kernels:
         name = k["name"]
-        k["launches"] = launches_int8[name] if name == "int8_matmul" else launches[name]
+        k["launches"] = launches_int8[name] if name == "int8_matmul" else launches_serving[name]
         if k["launches"] <= 0 or launches_int8[name] <= 0:
             raise AssertionError(f"{name} was not launched on its main path")
+        if name != "int8_matmul" and launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the bf16 window path")
     log(json.dumps({"end_to_end": e2e, "end_to_end_int8": e2e_int8,
-                    "launches_bf16_path": launches, "proxy": proxy}))
+                    "launches_bf16_path": launches, "proxy": proxy, "serving": serving}))
 
     print(name_power)
     print(json.dumps({"kernels": kernels}))

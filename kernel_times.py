@@ -5,7 +5,9 @@
 
 imports ``modular_audio_pipeline_tpu_torch`` from ROOT (default: this
 file's directory), builds its kernels and prints one JSON line with the
-flash kernel's time at the large-v3-turbo encoder shape, the ancestry
+flash kernel's time at the large-v3-turbo encoder shape (bf16, the
+tensor-core route) and at SegmentationNet's (f32 [512, 4, 1000, 32], a
+512-window chunk, the SIMT route), the ancestry
 kernel's at the decode shape (16 windows x 5 beams x 20 heads, int8
 cache), at a 448 and a 64 context bucket, with random and with shared
 ancestry, and the int8 product's at the five main-path shapes and at 16
@@ -168,6 +170,10 @@ def main() -> int:
     q, k, v = (torch.randn((16, 20, 1500, 64), generator=g, device="cuda").to(torch.bfloat16)
                for _ in range(3))
     out["flash_ms"] = graph_ms(torch, lambda: flash_attention(q, k, v), calls=4, reps=5)
+    del q, k, v
+    q, k, v = (torch.randn((512, 4, 1000, 32), generator=g, device="cuda") for _ in range(3))
+    out["flash_segmentation_f32_ms"] = graph_ms(torch, lambda: flash_attention(q, k, v),
+                                                calls=2, reps=3)
     del q, k, v
 
     bw, kq, h, hd, layers, layer = 16, 5, 20, 64, 2, 1

@@ -8,14 +8,19 @@ transcription over 30 s windows (log-mel, encoder with a hand-written
 flash-attention kernel, beam decode with a hand-written ancestry-attention
 kernel over an int8 KV cache, segment and DTW word timestamps, the
 temperature-fallback ladder, language detection, and a weight-only int8
-decoder through a hand-written int8 product kernel).
+decoder through a hand-written int8 product kernel), and the serving path
+around it (``ServingPipeline.process`` and ``run_file``: denoise and
+loudness statistics, the trained ConvVAD, the window gather, the trained
+segmentation + embedding diarization stack, speaker alignment and the JSON
+output).
 
 Example::
 
-    from modular_audio_pipeline_tpu_torch import WhisperTranscriber
+    from modular_audio_pipeline_tpu_torch import PipelineConfig, ServingPipeline
 
-    tr = WhisperTranscriber("large-v3-turbo", language="en")  # CUDA
-    print(tr.transcribe("speech.wav")["text"])
+    cfg = PipelineConfig()
+    cfg.transcription.model = "large-v3-turbo"
+    result = ServingPipeline(cfg).run_file("meeting.wav", "results/")  # CUDA
 
 Names are resolved on first access, so importing the package loads no
 model code.
@@ -23,10 +28,11 @@ model code.
 
 import importlib
 
-__all__ = ["WhisperTranscriber", "TorchWhisperBackend", "TranscriptionConfig",
-           "PipelineConfig", "ModelLoadError", "TranscriptionError"]
+__all__ = ["WhisperTranscriber", "TorchWhisperBackend", "ServingPipeline",
+           "TranscriptionConfig", "PipelineConfig", "ModelLoadError", "TranscriptionError"]
 
 _HOME = {
+    "ServingPipeline": ".serving",
     "WhisperTranscriber": ".transcriber",
     "TorchWhisperBackend": ".transcriber",
     "TranscriptionConfig": ".config",

@@ -1,8 +1,8 @@
 """WAV read/write and host resampling (numpy), for the PyTorch port.
 
 Copied from ``modular_audio_pipeline_tpu/audio_io.py`` (``read_wav``,
-``write_wav``, ``resample_poly`` and their PCM helpers) without the
-stage-buffer registry, which belongs to the serving slice.
+``read_wav_raw_int16``, ``write_wav``, ``resample_poly`` and their PCM
+helpers) without the stage-buffer registry of the stage-by-stage path.
 """
 
 from __future__ import annotations
@@ -10,18 +10,20 @@ from __future__ import annotations
 import struct
 import wave
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
 from .exceptions import AudioProcessingError
 
-__all__ = ["read_wav", "write_wav", "to_float32", "to_int16", "resample_poly"]
+__all__ = ["read_wav", "read_wav_raw_int16", "write_wav", "to_float32", "to_int16",
+           "resample_poly"]
 
 _RIFF = b"RIFF"
 _WAVE = b"WAVE"
 _FMT = b"fmt "
 _DATA = b"data"
+_PCM = 1
 _IEEE_FLOAT = 3
 _EXTENSIBLE = 0xFFFE
 
@@ -122,6 +124,37 @@ def read_wav(path: str, mono: bool = True) -> Tuple[np.ndarray, int]:
         if mono:
             out = out.mean(axis=1)
     return np.ascontiguousarray(out), sample_rate
+
+
+def read_wav_raw_int16(path: str) -> Tuple[Optional[np.ndarray], int]:
+    """Mono 16-bit PCM WAVs as their raw int16 samples (half the upload
+    bytes of f32; the device converts). ``(None, sample_rate)`` for any
+    other layout: callers fall back to :func:`read_wav`."""
+    try:
+        data = Path(path).read_bytes()
+    except OSError as exc:
+        raise AudioProcessingError(f"Failed to read WAV file: {path}", details=str(exc))
+    if len(data) < 44 or data[:4] != _RIFF or data[8:12] != _WAVE:
+        raise AudioProcessingError(f"Not a RIFF/WAVE file: {path}")
+
+    fmt = None
+    pcm = None
+    pos = 12
+    while pos + 8 <= len(data):
+        chunk_id = data[pos : pos + 4]
+        (chunk_size,) = struct.unpack_from("<I", data, pos + 4)
+        if chunk_id == _FMT:
+            fmt = struct.unpack_from("<HHIIHH", data, pos + 8)
+        elif chunk_id == _DATA:
+            pcm = data[pos + 8 : pos + 8 + chunk_size]
+        pos += 8 + chunk_size + (chunk_size & 1)
+
+    if fmt is None or pcm is None:
+        raise AudioProcessingError(f"WAV missing fmt/data chunk: {path}")
+    audio_format, channels, sample_rate, _, _, bits = fmt
+    if audio_format != _PCM or channels != 1 or bits != 16:
+        return None, sample_rate
+    return np.frombuffer(pcm, dtype=np.int16), sample_rate
 
 
 def write_wav(path: str, samples: np.ndarray, sample_rate: int) -> None:

@@ -53,7 +53,7 @@ from .models.whisper.timestamps import align_words, align_words_batched
 from .models.whisper.tokenizer import WhisperTokenizer, load_tokenizer
 from .ops.mel import log_mel
 from .ops.quant import quantize_decoder
-from .utils import retry_with_backoff
+from .utils import SHIPPED_WEIGHTS, not_ported, resolve_device, retry_with_backoff
 
 logger = logging.getLogger(__name__)
 
@@ -63,14 +63,6 @@ _WINDOW_S = 30.0
 _SR = 16000
 _BATCH_BUCKETS = (1, 2, 4, 8, 16)
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-# The JAX package's shipped bundles, read by path (never imported).
-_JAX_WEIGHTS = Path(__file__).resolve().parents[1] / "modular_audio_pipeline_tpu" / "weights"
-
-
-def _todo(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP.md §A, '{item}')"
-    )
 
 
 def _no_retry_unported(exc: Exception, attempt: int) -> None:
@@ -85,18 +77,6 @@ def _retry_rng(temp_idx: int, device: torch.device) -> torch.Generator:
     call with the rung's seed (the JAX package's ``PRNGKey(1000 +
     temp_idx)``), so a retry never depends on what was sampled before."""
     return torch.Generator(device=device).manual_seed(1000 + temp_idx)
-
-
-def resolve_device(device: Optional[str]) -> torch.device:
-    """``None`` means CUDA; asking for CUDA without a CUDA device raises
-    rather than drifting to the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA device requested but torch.cuda.is_available() is False; "
-            "pass device='cpu' to run on the CPU"
-        )
-    return dev
 
 
 class TorchWhisperBackend:
@@ -163,7 +143,7 @@ class TorchWhisperBackend:
         self.check_supported()
         # "int8" loads bf16, then quantises the decoder below
         dtype = _DTYPES.get(self.compute_dtype, torch.bfloat16)
-        path = self.weights_path or str(_JAX_WEIGHTS / f"whisper-{self.model_name}")
+        path = self.weights_path or str(SHIPPED_WEIGHTS / f"whisper-{self.model_name}")
 
         if str(path).startswith("random"):
             seed = int(str(path).partition(":")[2] or 0)
@@ -265,7 +245,7 @@ class TorchWhisperBackend:
     def check_supported(self) -> None:
         """Raise NotImplementedError for an option this port cannot run yet."""
         if self.chunking != "batched":
-            raise _todo(f"chunking={self.chunking!r} (the seek loop)", "sequential chunking")
+            raise not_ported(f"chunking={self.chunking!r} (the seek loop)", "sequential chunking")
 
     def transcribe_array(self, audio: np.ndarray, sr: int) -> Dict[str, Any]:
         self.check_supported()

@@ -4,14 +4,69 @@ from __future__ import annotations
 
 import functools
 import logging
+import os
 import time
-from typing import Any, Callable, Optional, TypeVar
+from pathlib import Path
+from typing import Any, Callable, List, Optional, TypeVar
 
 logger = logging.getLogger(__name__)
 
 T = TypeVar("T")
 
-__all__ = ["retry_with_backoff"]
+__all__ = ["retry_with_backoff", "weights_search_roots", "find_weights_bundle", "not_ported",
+           "resolve_device"]
+
+
+def resolve_device(device=None):
+    """``None`` means CUDA; asking for CUDA without a CUDA device raises
+    rather than drifting to the CPU."""
+    import torch
+
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error an option of the JAX package raises here until its
+    ROADMAP.md queue-A item lands."""
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet (ROADMAP.md §A, '{item}')"
+    )
+
+
+# The JAX package's shipped bundles, read by path (never imported).
+SHIPPED_WEIGHTS = Path(__file__).resolve().parents[1] / "modular_audio_pipeline_tpu" / "weights"
+
+
+def weights_search_roots() -> List[Path]:
+    """Roots searched for model bundles, in order, as the JAX package
+    searches them: ``MAP_TPU_WEIGHTS`` alone when set; otherwise the user
+    cache ``~/.cache/map_tpu`` (a retrained bundle wins), then the shipped
+    ``modular_audio_pipeline_tpu/weights``."""
+    env = os.environ.get("MAP_TPU_WEIGHTS")
+    if env:
+        return [Path(env)]
+    return [Path(os.path.expanduser("~")) / ".cache" / "map_tpu", SHIPPED_WEIGHTS]
+
+
+def find_weights_bundle(bundle: str, explicit: Optional[str] = None) -> Optional[Path]:
+    """The directory of bundle ``bundle`` (one holding ``params.npz``):
+    ``explicit`` when it exists, else the first search root that has
+    ``<root>/<bundle>/params.npz``, else None."""
+    if explicit:
+        p = Path(explicit)
+        if p.exists():
+            return p
+    for root in weights_search_roots():
+        cand = root / bundle
+        if (cand / "params.npz").exists():
+            return cand
+    return None
 
 
 def retry_with_backoff(

@@ -458,3 +458,53 @@ def test_int8_decode_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(got.sum_logprobs[same], want.sum_logprobs[same],
                                    rtol=0, atol=0.1)
         np.testing.assert_allclose(got.sum_logprobs, want.sum_logprobs, rtol=0.05, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(32, 4, 1000, 32), (2, 4, 1001, 32)])
+def test_flash_kernel_at_the_segmentation_shape(cuda, shape):
+    """SegmentationNet's call: f32 at head dim 32 (the SIMT route), S 1000
+    and a ragged 1001, within the f32 tolerance and equal bits twice."""
+    q, k, v = (torch.randn(shape, generator=cuda, device="cuda") for _ in range(3))
+    out, again = attn_ops.flash_attention(q, k, v), attn_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    err = (out - attn_ops.attention_reference(q, k, v)).abs().max().item()
+    assert err <= TOL[torch.float32], err
+    assert torch.equal(out, again)
+
+
+def test_serving_networks_on_card_match_cpu(cuda):
+    """The ConvVAD, SegmentationNet (through the flash kernel) and
+    ConvEmbedder of the shipped bundles on the card against the same
+    modules on the CPU: the f32 convolutions run with TF32 off, so the CPU
+    tests' tolerances hold (probabilities and embeddings 1e-5; the f16
+    marginals one ulp)."""
+    from modular_audio_pipeline_tpu_torch.models.diarization.embedding import ConvEmbedder
+    from modular_audio_pipeline_tpu_torch.models.diarization.features import mfcc_batch
+    from modular_audio_pipeline_tpu_torch.models.diarization.segmentation import SegmentationNet
+    from modular_audio_pipeline_tpu_torch.models.vad_net import ConvVAD
+    from modular_audio_pipeline_tpu_torch.models.whisper.convert import load_params
+    from modular_audio_pipeline_tpu_torch.utils import SHIPPED_WEIGHTS
+
+    rng = np.random.default_rng(8)
+    t = np.arange(20 * 16000) / 16000
+    x = (0.3 * np.sin(2 * np.pi * 150 * t) * (np.sin(2 * np.pi * 0.7 * t) > 0)
+         + 0.01 * rng.standard_normal(t.size)).astype(np.float32)
+    x = torch.from_numpy(x)
+
+    def both(cls, bundle):
+        params = load_params(str(SHIPPED_WEIGHTS / bundle))
+        return cls(params, device="cuda"), cls(params, device="cpu")
+
+    gpu, cpu = both(ConvVAD, "vad-silero")
+    feats = ConvVAD.features(x)
+    assert (gpu(feats.cuda()).cpu() - cpu(feats)).abs().max().item() <= 1e-5
+    gpu, cpu = both(ConvEmbedder, "diarization-embedding")
+    spans = x[: 8 * 24000].reshape(8, 24000)
+    assert np.abs(gpu.embed(spans.cuda()) - cpu.embed(spans)).max() <= 1e-5
+    gpu, cpu = both(SegmentationNet, "diarization-segmentation")
+    mel = mfcc_batch(x.reshape(2, -1), n_mfcc=40, n_mels=40)
+    before = attn_ops.flash_attention.launches
+    mg = gpu.marginals(mel.cuda()).cpu()
+    assert attn_ops.flash_attention.launches == before + SegmentationNet.LAYERS
+    ulps = (mg.view(torch.int16).int() - cpu.marginals(mel).view(torch.int16).int()).abs()
+    assert ulps.max().item() <= 1

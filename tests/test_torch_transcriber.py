@@ -68,15 +68,21 @@ def test_proxy_bundle_segments_equal_jax(eval_sentences):
 
 
 def test_default_device_is_cuda():
-    """device=None means CUDA: without a CUDA device it raises instead of
-    running on the CPU."""
+    """device=None means CUDA, for the transcriber, the serving pipeline and
+    the diarizer: without a CUDA device they raise instead of running on
+    the CPU (tests/test_torch_serving.py covers the networks)."""
     from modular_audio_pipeline_tpu_torch.transcriber import WhisperTranscriber
+
+    from modular_audio_pipeline_tpu_torch.diarizer import SpeakerDiarizer
+    from modular_audio_pipeline_tpu_torch.serving import ServingPipeline
 
     if torch.cuda.is_available():
         assert WhisperTranscriber()._backend.device.type == "cuda"
+        assert ServingPipeline().device.type == SpeakerDiarizer().device.type == "cuda"
     else:
-        with pytest.raises(RuntimeError, match="CUDA"):
-            WhisperTranscriber()
+        for build in (WhisperTranscriber, ServingPipeline, SpeakerDiarizer):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                build()
 
 
 @pytest.mark.parametrize("option, value", [
@@ -156,10 +162,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import modular_audio_pipeline_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "pkg.WhisperTranscriber\n"
+        "pkg.WhisperTranscriber, pkg.ServingPipeline\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m.split('.')[0] in ('jaxlib', 'modular_audio_pipeline_tpu'))\n"
-        "assert len(names) >= 17, names\n"
+        "assert len(names) >= 37, names\n"
+        "assert {'serving', 'diarizer', 'vad', 'models.vad_net', 'models.diarization.segmentation',\n"
+        "        'models.diarization.embedding'} <= {n.split('.', 1)[1] for n in names}, names\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
