@@ -78,6 +78,25 @@ Phases (any failure exits non-zero and prints no result line):
    versions (equal keep intervals and turns, segments as in phase 5,
    ``original_start``/``original_end`` with merging off), and the ConvVAD
    and ConvEmbedder on the card against the CPU.
+7. Bench config 4 of the JAX package (``tools/bench_configs.py``): the
+   serving path with auto-detected vocal separation at full width and
+   depth, large-v3 (32 encoder and 32 decoder layers), random weights,
+   beam 5, 224 tokens, batch 8, DTW words, no-speech gate off, diarization
+   off, otherwise the defaults, on bench config 4's 8-minute podcast (four
+   synthetic voices under a repeating music loop), as int16. One warm-up and one timed ``process``
+   (launch counts reset just before and read just after, the card's
+   utilization sampled by ``nvidia-smi`` beside it), then ``run_file``. It
+   fails unless auto-detect chose separation and the MaskUNet ran on the
+   device (the host backend never resolved), there are segments, the
+   decode covered ceil(kept / 30 s) windows, the mappings are monotone and
+   inside the file, the flash kernel launched at least 32 times per batch
+   and the ancestry kernel 32 times per decode step. Then, card against
+   CPU: the MaskUNet stem of a 9 s clip, REPET's period and stems on 12 s,
+   a random Silero VAD's probabilities over 60 s in three sections with
+   the LSTM state carried, and the StatsEmbedder's turns without an embedding
+   bundle; the MaskUNet's device time per 5-minute chunk beside its
+   reckoned f32 operations; and the flash kernel at the large-v3 encoder
+   shape [8, 20, 1500, 64] bf16, timed beside its bound.
 
 Float32 products run in full f32 (TF32 off for matmuls and cuDNN
 convolutions). The last lines are the card, the per-kernel JSON line and
@@ -283,12 +302,14 @@ ANC_TOL = 1e-2  # bf16 y: f32 sums in another order may move a rounded
 #                 probability or y by one bf16 ulp (7.8e-3 at |y| in [1, 2))
 
 
-def _anc_inputs(torch, quant: bool, g, ctx: int = 448, shared: bool = False, bw: int = 16):
-    """One decode step's inputs at the last position of a ``ctx`` bucket.
-    ``shared``: every beam of a window follows beam 0's ancestry up to the
-    last three positions, as real decoding does; else rows at random."""
-    kq, h, hd, n_layers = 5, 20, 64, 4
-    bk, pos, layer = bw * kq, ctx - 1, 2
+def _anc_inputs(torch, quant: bool, g, ctx: int = 448, shared: bool = False, bw: int = 16,
+                n_layers: int = 4, layer: int = 2):
+    """One decode step's inputs for layer ``layer`` of an ``n_layers`` cache,
+    at the last position of a ``ctx`` bucket. ``shared``: every beam of a
+    window follows beam 0's ancestry up to the last three positions, as
+    real decoding does; else rows at random."""
+    kq, h, hd = 5, 20, 64
+    bk, pos = bw * kq, ctx - 1
     dev = "cuda"
     q = (torch.randn((bk, h, 1, hd), generator=g, device=dev) * 0.125).to(torch.bfloat16)
     if quant:
@@ -344,12 +365,48 @@ def _host_us(fn, n: int = 200) -> float:
     return dt / n * 1e6
 
 
-def phase_ancestry(torch):
-    from modular_audio_pipeline_tpu_torch.ops import ancestor_attention as anc_ops
+def _anc_case(torch, g, quant: bool, ctx: int, shared: bool, **shape):
+    """One step of the ancestry kernel against its plain version (y within
+    ANC_TOL, equal cache rows, equal bits over two runs), then its device,
+    eager and plain times beside its bound. Returns the numbers, the inputs
+    and the kernel's cache."""
     from modular_audio_pipeline_tpu_torch.ops.ancestor_attention import (
         ancestor_attention,
         ancestor_attention_reference,
     )
+
+    q, cache, new, anc, mask, layer, pos = _anc_inputs(torch, quant, g, ctx, shared, **shape)
+    mine = [None if c is None else c.clone() for c in cache]
+    plain = [None if c is None else c.clone() for c in cache]
+    y = ancestor_attention(q, *mine, layer, anc, mask, *new, pos)
+    y_ref = ancestor_attention_reference(q, *plain, layer, anc, mask, *new, pos)
+    again = ancestor_attention(q, *mine, layer, anc, mask)
+    torch.cuda.synchronize()
+    err = (y.float() - y_ref.float()).abs().max().item()
+    same = all(a is None or torch.equal(a, b) for a, b in zip(mine, plain))
+    bits = torch.equal(y, again)
+    name = (f"{'int8' if quant else 'bf16'} ctx {ctx} "
+            f"{'shared ancestry' if shared else 'random ancestry'}"
+            + "".join(f" {k} {v}" for k, v in shape.items()))
+    log(f"ancestry {name}: max_abs_err {err:.3e} (tol {ANC_TOL}), cache rows equal {same}, "
+        f"two runs bit-equal {bits}")
+    if not (err <= ANC_TOL and same and bits):
+        raise AssertionError(f"ancestor_attention ({name}) disagrees with its plain version")
+    ms = graph_ms([lambda: ancestor_attention(q, *mine, layer, anc, mask)] * 8)
+    eager_ms = time_ms(lambda: ancestor_attention(q, *mine, layer, anc, mask), 50)
+    plain_ms = time_ms(lambda: ancestor_attention_reference(q, *plain, layer, anc, mask), 10)
+    bound_ms, bound_by = bound(_anc_bytes(q, cache, anc, mask, layer),
+                               4.0 * q.shape[0] * q.shape[1] * anc.shape[-1] * q.shape[-1])
+    log(f"ancestry {name}: kernel {ms:.4f} ms on the device ({eager_ms:.4f} ms eager, with "
+        f"its wrapper), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    numbers = {"max_abs_err": err, "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+    return numbers, (q, new, anc, mask, layer, pos), mine
+
+
+def phase_ancestry(torch):
+    from modular_audio_pipeline_tpu_torch.ops import ancestor_attention as anc_ops
+    from modular_audio_pipeline_tpu_torch.ops.ancestor_attention import ancestor_attention
 
     g = torch.Generator(device="cuda").manual_seed(1)
     result = None
@@ -357,36 +414,15 @@ def phase_ancestry(torch):
     cases = [(True, 448, False), (True, 448, True), (True, 64, False), (True, 64, True),
              (False, 448, False)]
     for quant, ctx, shared in cases:
-        q, cache, new, anc, mask, layer, pos = _anc_inputs(torch, quant, g, ctx, shared)
-        mine = [None if c is None else c.clone() for c in cache]
-        plain = [None if c is None else c.clone() for c in cache]
-        y = ancestor_attention(q, *mine, layer, anc, mask, *new, pos)
-        y_ref = ancestor_attention_reference(q, *plain, layer, anc, mask, *new, pos)
-        again = ancestor_attention(q, *mine, layer, anc, mask)
-        torch.cuda.synchronize()
-        err = (y.float() - y_ref.float()).abs().max().item()
-        same = all(a is None or torch.equal(a, b) for a, b in zip(mine, plain))
-        bits = torch.equal(y, again)
-        name = (f"{'int8' if quant else 'bf16'} ctx {ctx} "
-                f"{'shared ancestry' if shared else 'random ancestry'}")
-        log(f"ancestry {name}: max_abs_err {err:.3e} (tol {ANC_TOL}), cache rows equal {same}, "
-            f"two runs bit-equal {bits}")
-        if not (err <= ANC_TOL and same and bits):
-            raise AssertionError(f"ancestor_attention ({name}) disagrees with its plain version")
-        ms = graph_ms([lambda: ancestor_attention(q, *mine, layer, anc, mask)] * 8)
-        eager_ms = time_ms(lambda: ancestor_attention(q, *mine, layer, anc, mask), 50)
-        plain_ms = time_ms(lambda: ancestor_attention_reference(q, *plain, layer, anc, mask), 10)
-        bound_ms, bound_by = bound(_anc_bytes(q, cache, anc, mask, layer),
-                                   4.0 * q.shape[0] * q.shape[1] * anc.shape[-1] * q.shape[-1])
-        log(f"ancestry {name}: kernel {ms:.4f} ms on the device ({eager_ms:.4f} ms eager, with "
-            f"its wrapper), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        numbers, (q, new, anc, mask, layer, pos), mine = _anc_case(torch, g, quant, ctx, shared)
         if result is None:  # the main path's cache type at its longest bucket
             result = {
                 "name": "ancestor_attention", "route": "cuda",
                 "source": "modular_audio_pipeline_tpu_torch/csrc/ancestor_attention.cu",
                 "replaces": "modular_audio_pipeline_tpu/ops/ancestor_attention.py:132",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None,
+                "max_abs_err": numbers["max_abs_err"], "ms": numbers["ms"],
+                "plain_ms": numbers["plain_ms"], "bound_ms": numbers["bound_ms"],
+                "bound_by": numbers["bound_by"], "library_ms": None,
             }
             sweep = {split: graph_ms(
                 [lambda: ancestor_attention(q, *mine, layer, anc, mask, split=split)] * 8)
@@ -398,7 +434,7 @@ def phase_ancestry(torch):
                 f"a call, of which its checks "
                 f"{_host_us(lambda: anc_ops._check(q, *mine, layer, anc, mask)):.1f} us; with the "
                 f"row store {_host_us(lambda: ancestor_attention(q, *mine, layer, anc, mask, *new, pos)):.1f} us")
-        del cache, mine, plain
+        del mine
         torch.cuda.empty_cache()
     # one window (a file of up to 30 s): 20 (window, head) pairs for 132 SMs
     q, cache, new, anc, mask, layer, pos = _anc_inputs(torch, True, g, 448, True, bw=1)
@@ -1178,6 +1214,359 @@ def phase_serving_proxy(torch, tmp: Path):
             "conv_vad_max_abs_err": vad_err, "conv_embedder_max_abs_err": emb_err}
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+STEM_TOL = 1e-5  # MaskUNet stem, card vs CPU: f32 convolutions (TF32 off) whose
+#                 cuDNN algorithms sum in other orders, as the CPU tests hold it to JAX
+REPET_TOL = 1e-5  # REPET stems: the same period and median model, FFTs rounded apart
+SILERO_TOL = 1e-5  # Silero probabilities: f32 convolutions and LSTM, TF32 off
+
+
+def voiced_speech(seconds: float, seed: int = 1) -> np.ndarray:
+    """Continuous speech of four synthetic voices (the port's copy of the
+    JAX package's voice model): tools/bench_configs.voiced_speech, copied,
+    since that module loads the JAX package."""
+    from modular_audio_pipeline_tpu_torch.training.voices import sample_voice, synth_utterance
+
+    rng = np.random.default_rng(seed)
+    voices = [sample_voice(rng) for _ in range(4)]
+    n = int(seconds * SR)
+    out = np.zeros(n, dtype=np.float32)
+    pos = 0
+    while pos < n:
+        utt = synth_utterance(voices[rng.integers(len(voices))], float(rng.uniform(2.5, 5.0)),
+                              rng, pause_prob=0.15)
+        take = min(len(utt), n - pos)
+        out[pos : pos + take] = utt[:take]
+        pos += take + int(rng.uniform(0.08, 0.35) * SR)  # inter-utterance gap
+    return out
+
+
+def music_podcast(seconds: float) -> np.ndarray:
+    """Bench config 4's audio: the voiced speech under a repeating music
+    loop (tools/bench_configs.music_podcast, copied). Its speech survives
+    the MaskUNet (the bundle was trained on such voices); bench_audio's
+    harmonic bed would not: after separation the ConvVAD keeps almost
+    none of it, and the decode would shrink to one window."""
+    speech = voiced_speech(seconds)
+    t = np.arange(len(speech)) / SR
+    loop = (0.25 * np.sin(2 * np.pi * 98 * t) + 0.15 * np.sin(2 * np.pi * 196.5 * t)
+            + 0.1 * np.sin(2 * np.pi * 294 * t))
+    return (speech + loop.astype(np.float32)).astype(np.float32)
+
+
+def silero_state_dict(seed: int = 0) -> dict:
+    """A random Silero v5 state_dict (fan-in scaled weights, a DFT basis),
+    as tests/test_torch_silero.py builds it: no Silero weights ship."""
+    from modular_audio_pipeline_tpu_torch.models.silero_convert import EXPECTED_SHAPES
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, shape in EXPECTED_SHAPES.items():
+        fan_in = int(np.prod(shape[1:])) if len(shape) > 1 else shape[0]
+        sd[key] = (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32)
+    k, n = np.arange(129)[:, None], np.arange(256)[None, :]
+    sd["_model.stft.forward_basis_buffer"] = np.concatenate(
+        [np.cos(2 * np.pi * k * n / 256), -np.sin(2 * np.pi * k * n / 256)]
+    )[:, None, :].astype(np.float32)
+    return sd
+
+
+def two_voices(seconds: float, seed: int) -> np.ndarray:
+    """Two synthetic voices taking turns every 4 s (as
+    tests/test_torch_diarization.py makes them)."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * SR)
+    t = np.arange(n) / SR
+    out = np.zeros(n)
+    for i, (f, tilt) in enumerate([(110.0, 0.6), (230.0, 0.25)]):
+        f0 = f + 12 * np.sin(2 * np.pi * 0.5 * t + i)
+        sig = sum((tilt ** j) * np.sin(2 * np.pi * (j + 1) * np.cumsum(f0) / SR) for j in range(6))
+        turn = ((t // 4) % 2 == i) & ((t % 4) < 3.4)
+        out += 0.3 * sig * turn * (0.6 + 0.4 * (np.sin(2 * np.pi * 3 * t) > -0.5))
+    return (out + 0.002 * rng.standard_normal(n)).astype(np.float32)
+
+
+def masknet_operations(net, n_samples: int):
+    """(padded [F, T], f32 operations) of one MaskUNet call over a chunk of
+    ``n_samples``: 2 * in * out * kh * kw per output position of each
+    convolution, per input position of each transposed one."""
+    f, t = 2048 // 2 + 1, n_samples // 512 + 1
+    h, w = f + (-f) % 16, t + (-t) % 16
+    ops, size = 0.0, (h, w)
+    for lvl in range(4):
+        cout, cin, kh, kw = getattr(net, f"down{lvl}_w").shape
+        size = (size[0] // 2, size[1] // 2)
+        ops += 2.0 * cin * cout * kh * kw * size[0] * size[1]
+    cout, cin, kh, kw = net.mid_w.shape
+    ops += 2.0 * cin * cout * kh * kw * size[0] * size[1]
+    for lvl in reversed(range(4)):
+        cout, cin, kh, kw = getattr(net, f"up{lvl}_w").shape
+        ops += 2.0 * cin * cout * kh * kw * size[0] * size[1]
+        size = (size[0] * 2, size[1] * 2)
+    ops += 2.0 * net.head_w.shape[1] * size[0] * size[1]
+    return (h, w), ops
+
+
+@contextlib.contextmanager
+def count_beam_steps(counter: list):
+    """Count the beam decode's steps: its decoder calls with an ancestry
+    table (the prefill and the word alignment pass none)."""
+    from modular_audio_pipeline_tpu_torch.models.whisper import decode
+
+    real = decode.decoder_forward
+
+    def spy(*args, **kw):
+        counter[0] += kw.get("anc") is not None
+        return real(*args, **kw)
+
+    decode.decoder_forward = spy
+    try:
+        yield
+    finally:
+        decode.decoder_forward = real
+
+
+@contextlib.contextmanager
+def utilization(samples: list):
+    """The card's utilization.gpu (the share of each sample period in which
+    a kernel ran), sampled by nvidia-smi every 100 ms inside the block."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=utilization.gpu", "--format=csv,noheader,nounits",
+         "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        yield
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+        samples.extend(float(v) / 100.0 for v in out.split() if v.strip().isdigit())
+
+
+def phase_separation(torch, tmp: Path, seconds: float):
+    """Bench config 4 through ServingPipeline on the card, then the
+    separation, Silero and StatsEmbedder numerics card against CPU, the
+    flash kernel at the large-v3 encoder's batch-8 shape and the ancestry
+    kernel at its decode step's (BK = 40, last layer of 32)."""
+    import math
+
+    from modular_audio_pipeline_tpu_torch.models.separation.unet import MaskUNet
+    from modular_audio_pipeline_tpu_torch.ops.bucketing import bucket_length
+    from modular_audio_pipeline_tpu_torch.ops.music import analyze_audio_content
+    from modular_audio_pipeline_tpu_torch.serving import ServingPipeline
+
+    mix = music_podcast(seconds)
+    audio = np.clip(np.round(mix * 32768.0), -32768, 32767).astype(np.int16)
+    analysis = analyze_audio_content(audio.astype(np.float32) / 32768.0, SR, "cuda")
+    log(f"separation: music analysis {analysis}")
+    cfg = serving_config("large-v3", "random:0", 224, True)
+    cfg.transcription.batch_size = 8
+    cfg.diarization.enabled = False
+    cfg.vocal_separation.enabled = True
+    cfg.vocal_separation.auto_detect = True
+    t0 = time.perf_counter()
+    pipe = ServingPipeline(cfg, device="cuda")
+    pipe.backend.load()
+    torch.cuda.synchronize()
+    log(f"separation: random large-v3 loaded in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pipe.process(audio, SR)
+    torch.cuda.synchronize()
+    log(f"separation: warm-up run {time.perf_counter() - t0:.2f} s")
+
+    busy: list = []
+    steps_seen = [0]
+    wrappers = _reset_launches()
+    torch.cuda.synchronize()
+    with utilization(busy), count_beam_steps(steps_seen):
+        t0 = time.perf_counter()
+        result = pipe.process(audio, SR)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    stages = dict(pipe.last_timings)
+    ds = result["decode_stats"]
+    busy_share = sum(busy) / len(busy) if busy else None
+    log(f"separation: wall {wall:.3f} s, realtime x{seconds / wall:.1f}, kept "
+        f"{result['kept_duration']:.3f} s, decode {ds}, segments {len(result['segments'])}, "
+        f"launches {launches}, card utilization {busy_share} over {len(busy)} samples, host "
+        "seconds by stage " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+
+    if not (analysis["has_music"] and analysis["confidence"] > 0.5 and result["vocal_separation"]):
+        raise AssertionError(f"separation: auto-detect did not choose separation: {analysis}")
+    if not isinstance(pipe._separation_net, MaskUNet) or pipe._separation_fn is not None:
+        raise AssertionError("separation: the device MaskUNet did not run (host backend resolved)")
+    if not result["segments"]:
+        raise AssertionError("separation: no segment")
+    _check_serving(result, seconds, "separation")
+    n_batches = math.ceil(ds["n_windows"] / pipe.backend.batch_size)
+    layers = pipe.backend.dims.n_text_layer
+    steps = steps_seen[0]
+    enc_layers = pipe.backend.dims.n_audio_layer
+    if launches["flash_attention"] < enc_layers * n_batches:
+        raise AssertionError(f"separation: {launches['flash_attention']} flash launches for "
+                             f"{n_batches} batches of a {enc_layers}-layer encoder")
+    if steps <= 0 or launches["ancestor_attention"] != layers * steps:
+        raise AssertionError(f"separation: {launches['ancestor_attention']} ancestry launches "
+                             f"over {steps} decode steps, not {layers} per step")
+    log(f"separation: {n_batches} batches, flash {launches['flash_attention']} launches, "
+        f"ancestry {launches['ancestor_attention']} = {layers} x {steps} decode steps")
+
+    wav = tmp / "podcast.wav"
+    from modular_audio_pipeline_tpu_torch.audio_io import write_wav
+
+    write_wav(str(wav), audio.astype(np.float32) / 32768.0, SR)
+    out = pipe.run_file(str(wav), str(tmp / "results"))
+    if not out.success or not out.segments:
+        raise AssertionError(f"separation: run_file failed: {out.error}")
+    log(f"separation: run_file wrote {len(out.segments)} merged segments in "
+        f"{out.metadata['wall_time_s']} s")
+
+    chunk = int(cfg.vocal_separation.chunk_minutes * 60 * SR)
+    padded, ops = masknet_operations(pipe._separation_net, chunk)
+    n_chunks = math.ceil(bucket_length(len(audio), SR) / chunk)
+    net = pipe._separation_net
+    seg = torch.from_numpy(mix[:chunk].copy()).cuda()
+    mag = torch.ones((1, 1025, padded[1]), device="cuda")
+    chunk_ms = time_ms(lambda: net.separate_device(seg), 3, warmup=1)
+    forward_ms = time_ms(lambda: net(mag), 3, warmup=1)
+    del seg, mag
+    log(f"separation: MaskUNet over {n_chunks} chunks of {chunk} samples, each a padded "
+        f"{list(padded)} spectrogram and {ops / 1e12:.3f} TFLOP of f32 convolutions "
+        f"(at least {ops / PEAK_F32_FLOPS * 1e3:.1f} ms at the f32 peak): the network "
+        f"{forward_ms:.1f} ms ({ops / forward_ms / 1e9:.1f} TFLOP/s), STFT + mask + iSTFT of a "
+        f"chunk {chunk_ms:.1f} ms")
+    checks = separation_card_vs_cpu(torch, pipe._separation_net, tmp)
+    del pipe, net
+    torch.cuda.empty_cache()
+    encoder = flash_at(torch, (8, 20, 1500, 64))
+    # one decode step of the last layer of the 32-layer int8 cache at BK = 40
+    g = torch.Generator(device="cuda").manual_seed(3)
+    ancestry, _, _ = _anc_case(torch, g, True, 448, False, bw=8, n_layers=layers, layer=layers - 1)
+    torch.cuda.empty_cache()
+    return launches, {"wall_s": wall, "realtime_x": seconds / wall,
+                      "energy_cv": analysis["energy_cv"], "confidence": analysis["confidence"],
+                      "kept_duration": result["kept_duration"], "decode_stats": ds,
+                      "segments": len(result["segments"]), "decode_steps": steps,
+                      "masknet_padded_spectrogram": list(padded),
+                      "masknet_tflop_per_chunk": ops / 1e12, "masknet_chunks": n_chunks,
+                      "masknet_forward_ms": forward_ms, "masknet_chunk_ms": chunk_ms,
+                      "host_s_by_stage": stages, "card_utilization": busy_share,
+                      "utilization_samples": len(busy),
+                      "run_file_s": out.metadata["wall_time_s"], "card_vs_cpu": checks,
+                      "flash_encoder_batch8": encoder, "ancestry_batch8": ancestry}
+
+
+def separation_card_vs_cpu(torch, net_gpu, tmp: Path) -> dict:
+    """The MaskUNet stem, REPET's period and stems, a random Silero VAD's
+    sectioned probabilities and the StatsEmbedder's turns, each on the
+    card against the CPU."""
+    import os
+
+    from modular_audio_pipeline_tpu_torch.diarizer import SpeakerDiarizer
+    from modular_audio_pipeline_tpu_torch.models.diarization.embedding import StatsEmbedder
+    from modular_audio_pipeline_tpu_torch.models.separation import repet
+    from modular_audio_pipeline_tpu_torch.models.separation.unet import MaskUNet
+    from modular_audio_pipeline_tpu_torch.models.silero_convert import convert_state_dict
+    from modular_audio_pipeline_tpu_torch.models.vad_net import SileroVAD
+    from modular_audio_pipeline_tpu_torch.models.whisper.convert import load_params
+    from modular_audio_pipeline_tpu_torch.ops.bucketing import bucket_length, tile_to_length
+    from modular_audio_pipeline_tpu_torch.ops.stft import stft
+    from modular_audio_pipeline_tpu_torch.serving import _silero_section
+    from modular_audio_pipeline_tpu_torch.utils import SHIPPED_WEIGHTS
+
+    x = torch.from_numpy(music_podcast(9.0))
+    net_cpu = MaskUNet(load_params(str(SHIPPED_WEIGHTS / "separation-htdemucs")), device="cpu")
+    stem = net_gpu.separate_device(x.cuda()).cpu()
+    stem_err = (stem - net_cpu.separate_device(x)).abs().max().item()
+
+    clip = music_podcast(12.0)
+    tiled = torch.from_numpy(tile_to_length(clip, bucket_length(len(clip), SR)))  # as REPET tiles
+    periods = [repet.find_repeating_period(
+        stft(tiled.to(d), n_fft=2048, hop=512).abs().cpu().numpy() ** 2, SR)
+        for d in ("cuda", "cpu")]
+    (gv, gm), (cv, cm) = (repet.repet_separate(clip, SR, device=d) for d in ("cuda", "cpu"))
+    repet_err = float(max(np.abs(gv - cv).max(), np.abs(gm - cm).max()))
+
+    tree = convert_state_dict(silero_state_dict())
+    vad_gpu, vad_cpu = SileroVAD(tree, device="cuda"), SileroVAD(tree, device="cpu")
+    speech = bench_audio(60.0)
+    want = vad_cpu.speech_probs(speech, SR)
+    h = c = torch.zeros(SileroVAD.HID, device="cuda")
+    tail = torch.zeros(SileroVAD.CONTEXT, device="cuda")
+    one = torch.ones((), device="cuda")
+    parts = []
+    section = 37 * 12800  # 29.6 s: a multiple of the 512-sample chunk, as serving's sections
+    for s0 in range(0, len(speech), section):  # three sections, the state carried
+        p, h, c, tail = _silero_section(vad_gpu, torch.from_numpy(speech[s0:s0 + section]).cuda(),
+                                        one, h, c, tail)
+        parts.append(p)
+    got = torch.cat(parts).cpu().numpy()
+    silero_err = float(np.abs(got - want).max())
+
+    root = tmp / "weights"
+    root.mkdir(exist_ok=True)
+    (root / "diarization-segmentation").symlink_to(SHIPPED_WEIGHTS / "diarization-segmentation")
+    timeline = np.zeros(40 * SR, np.float32)
+    timeline[: 30 * SR] = two_voices(30.0, 3)
+    saved = os.environ.get("MAP_TPU_WEIGHTS")
+    os.environ["MAP_TPU_WEIGHTS"] = str(root)
+    def turns(device):
+        dz = SpeakerDiarizer(device=device)
+        segs, _ = dz.diarize_device_timeline(torch.from_numpy(timeline).to(device), 30 * SR, SR,
+                                             1, 5)
+        if not isinstance(dz._embedder, StatsEmbedder) or dz._segmentation is None:
+            raise AssertionError("separation: the diarizer did not take the StatsEmbedder")
+        return [(t.speaker, t.start, t.end) for t in segs]
+
+    try:
+        gpu_turns, cpu_turns = turns("cuda"), turns("cpu")
+    finally:
+        if saved is None:
+            del os.environ["MAP_TPU_WEIGHTS"]
+        else:
+            os.environ["MAP_TPU_WEIGHTS"] = saved
+    log(f"separation: card vs CPU: MaskUNet stem {stem_err:.2e} (tol {STEM_TOL}); REPET periods "
+        f"{periods}, stems {repet_err:.2e} (tol {REPET_TOL}); Silero over three sections "
+        f"{silero_err:.2e} (tol {SILERO_TOL}); StatsEmbedder turns {len(gpu_turns)} on the "
+        f"card, equal {gpu_turns == cpu_turns}")
+    if not (stem_err <= STEM_TOL and periods[0] == periods[1] and repet_err <= REPET_TOL
+            and silero_err <= SILERO_TOL and gpu_turns == cpu_turns and cpu_turns):
+        raise AssertionError("separation: the card disagrees with the CPU")
+    return {"masknet_stem_max_abs_err": stem_err, "repet_period": periods[0],
+            "repet_max_abs_err": repet_err, "silero_max_abs_err": silero_err,
+            "stats_embedder_turns": len(gpu_turns)}
+
+
+def flash_at(torch, shape) -> dict:
+    """The flash kernel against its plain version at ``shape`` (bf16), and
+    its device time beside the plain version's, the library's and the
+    bound (as phase 2 computes it)."""
+    import torch.nn.functional as F
+
+    from modular_audio_pipeline_tpu_torch.ops.attention import attention_reference, flash_attention
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+    out, ref = flash_attention(q, k, v).float(), attention_reference(q, k, v).float()
+    err = (out - ref).abs().max().item()
+    if not err <= FLASH_TOL:
+        raise AssertionError(f"flash_attention at {shape}: err {err}")
+    ms = graph_ms([lambda: flash_attention(q, k, v)] * 4)
+    plain_ms = time_ms(lambda: attention_reference(q, k, v), 5)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+    b, h, s, d = shape
+    bound_ms, bound_by = bound(4 * q.numel() * q.element_size(), 4.0 * b * h * s * s * d)
+    exp_ms = b * h * s * s / exp_rate(torch) * 1e3
+    if exp_ms > bound_ms:
+        bound_ms, bound_by = exp_ms, "operations"
+    log(f"flash {shape} bf16: max_abs_err {err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"shape": list(shape), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
 def main() -> int:
     try:
         import torch
@@ -1231,6 +1620,11 @@ def main() -> int:
         launches_serving, serving = phase_serving(torch, Path(d), seconds)
         torch.cuda.empty_cache()
         log(f"phase 6 done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches_sep, separation = phase_separation(torch, Path(d), seconds)
+        torch.cuda.empty_cache()
+        separation["phase_s"] = time.perf_counter() - t0
+        log(f"phase 7 done in {separation['phase_s']:.1f} s")
     # each kernel's count from the main path that brings it: phase 6 (the
     # serving path) for the flash and ancestry kernels, phase 4b (the one
     # path with compute_type="int8") for the int8 product; each must also
@@ -1242,8 +1636,16 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched on its main path")
         if name != "int8_matmul" and launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the bf16 window path")
+        if name != "int8_matmul" and launches_sep[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the separation path")
+        k["launches_separation_path"] = launches_sep[name]
+        if name == "flash_attention":
+            k["large_v3_encoder_batch8"] = separation["flash_encoder_batch8"]
+        if name == "ancestor_attention":
+            k["large_v3_batch8"] = separation["ancestry_batch8"]
     log(json.dumps({"end_to_end": e2e, "end_to_end_int8": e2e_int8,
-                    "launches_bf16_path": launches, "proxy": proxy, "serving": serving}))
+                    "launches_bf16_path": launches, "proxy": proxy, "serving": serving,
+                    "separation": separation}))
 
     print(name_power)
     print(json.dumps({"kernels": kernels}))

@@ -15,7 +15,9 @@ rows: the
 kernel alone (``int8_matmul(x, wq, ws)``, f32 out) and, for the four
 projection shapes, the model's ``_proj`` with a bf16 bias and bf16
 activations (the kernel plus whatever bias add and cast the tree does
-after it) with the number of device launches it makes, beside bf16
+after it) with the number of int8 kernel launches it makes (the
+wrapper's launch counter, read around one call; torch.profiler's count of
+device kernels is logged beside it as a cross-check), beside bf16
 ``torch.matmul`` on a dequantised weight. The int8
 times cycle over enough copies of the weight to exceed the 50 MB L2, as
 the decode loop finds its weights cold. Times are means over CUDA-graph
@@ -139,8 +141,23 @@ def e2e_int8_words(torch, out: dict) -> None:
                     tr._backend.last_stats["align_s"])
 
 
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def wrapper_launches(torch, wrapper, fn) -> int:
+    """Kernel launches the wrapper counts over one call of ``fn``."""
+    fn()
+    torch.cuda.synchronize()
+    before = wrapper.launches
+    fn()
+    torch.cuda.synchronize()
+    return wrapper.launches - before
+
+
 def device_launches(torch, fn) -> int:
-    """Kernels one call of ``fn`` puts on the device (torch.profiler)."""
+    """Kernels one call of ``fn`` puts on the device (torch.profiler; it
+    can miss a kernel, so only a cross-check)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -211,7 +228,10 @@ def main() -> int:
             mods = [{"q_wq": w, "q_ws": ws, "q_b": bias} for w in wqs]
             out[f"proj_{shape}_ms"] = graph_ms(
                 torch, [lambda mod=mod: _proj(x, mod, "q") for mod in mods], reps=reps)
-            out[f"proj_{shape}_launches"] = device_launches(torch, lambda: _proj(x, mods[0], "q"))
+            proj = lambda: _proj(x, mods[0], "q")  # noqa: E731
+            out[f"proj_{shape}_launches"] = wrapper_launches(torch, int8_matmul, proj)
+            log(f"proj {shape}: {out[f'proj_{shape}_launches']} int8 kernel launches (wrapper "
+                f"counter), {device_launches(torch, proj)} device kernels (torch.profiler)")
         w_bf16 = [(w.float() * ws).to(torch.bfloat16) for w in wqs]
         out[f"bf16_matmul_{shape}_ms"] = graph_ms(
             torch, [lambda w=w: torch.matmul(x, w) for w in w_bf16], reps=reps)

@@ -9,10 +9,11 @@ flash-attention kernel, beam decode with a hand-written ancestry-attention
 kernel over an int8 KV cache, segment and DTW word timestamps, the
 temperature-fallback ladder, language detection, and a weight-only int8
 decoder through a hand-written int8 product kernel), and the serving path
-around it (``ServingPipeline.process`` and ``run_file``: denoise and
-loudness statistics, the trained ConvVAD, the window gather, the trained
-segmentation + embedding diarization stack, speaker alignment and the JSON
-output).
+around it (``ServingPipeline.process`` and ``run_file``: auto-detected vocal
+separation by the MaskUNet or REPET, denoise and loudness statistics, the
+trained ConvVAD or a converted Silero VAD, the window gather, the trained
+segmentation + embedding diarization stack or the weight-free statistics
+embedder, speaker alignment and the JSON output).
 
 Example::
 

@@ -68,7 +68,9 @@ class NoiseReductionConfig:
 
 @dataclass
 class VocalSeparationConfig:
-    """Vocal isolation settings (not ported yet: enabling it raises)."""
+    """Vocal isolation: MaskUNet bundle ``separation-<model>``, else REPET;
+    ``chunk_minutes`` per separation call; ``auto_detect`` separates only
+    audio that the energy-CV test finds music in."""
 
     enabled: bool = False
     model: str = "htdemucs"

@@ -9,15 +9,15 @@ Counterpart of the device path of ``modular_audio_pipeline_tpu/diarizer.py``
    when no segmentation bundle is shipped or it finds no speech;
 2. 1.5 s subsegments at a 0.75 s hop inside the regions, gathered on the
    device from the timeline's 16-sample blocks and embedded by the
-   ``ConvEmbedder``;
+   ``ConvEmbedder``; without an embedding bundle, the weight-free
+   ``StatsEmbedder``'s span statistics over one MFCC pass of the timeline;
 3. calibrated agglomerative clustering on the host;
 4. adjacent same-speaker subsegments merged into ``SPEAKER_NN`` turns.
 
-Only activities and embeddings cross to the host. As in the JAX package, a
-bundle that fails to load degrades to one ``SPEAKER_00`` turn over the
-whole timeline (``_use_noop``); an option that is not ported yet
-(``StatsEmbedder`` without an embedding bundle) raises instead. Runs on
-CUDA unless ``device="cpu"``.
+Only activities, embeddings and (for the ``StatsEmbedder``) f16 MFCC
+frames cross to the host. As in the JAX package, a bundle that fails to
+load degrades to one ``SPEAKER_00`` turn over the whole timeline
+(``_use_noop``). Runs on CUDA unless ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -80,25 +80,25 @@ class SpeakerDiarizer:
         from .utils import find_weights_bundle
 
         emb_dir = find_weights_bundle("diarization-embedding", explicit=self.weights_path)
-        if emb_dir is None:
-            from .models.diarization.embedding import StatsEmbedder
-
-            StatsEmbedder()  # raises: not ported yet
         try:
-            from .models.diarization.embedding import ConvEmbedder
+            from .models.diarization.embedding import ConvEmbedder, StatsEmbedder
             from .models.whisper.convert import load_params, unflatten_tree
 
-            with np.load(emb_dir / "params.npz") as z:
-                tree = unflatten_tree({k: z[k] for k in z.files})
-            self._embedder = ConvEmbedder(tree, device=self.device)
-            logger.info("Loaded ConvEmbedder weights from %s", emb_dir)
-            calib = emb_dir / "calibration.json"
-            if calib.exists():
-                cal = json.loads(calib.read_text())
-                if self.ahc_threshold is None:
-                    self.ahc_threshold = cal.get("ahc_threshold")
-                if cal.get("single_speaker_cutoff") is not None:
-                    self.single_cutoff = float(cal["single_speaker_cutoff"])
+            if emb_dir is None:
+                self._embedder = StatsEmbedder(device=self.device)
+                logger.info("Using MFCC-statistics speaker embedder (no checkpoint)")
+            else:
+                with np.load(emb_dir / "params.npz") as z:
+                    tree = unflatten_tree({k: z[k] for k in z.files})
+                self._embedder = ConvEmbedder(tree, device=self.device)
+                logger.info("Loaded ConvEmbedder weights from %s", emb_dir)
+                calib = emb_dir / "calibration.json"
+                if calib.exists():
+                    cal = json.loads(calib.read_text())
+                    if self.ahc_threshold is None:
+                        self.ahc_threshold = cal.get("ahc_threshold")
+                    if cal.get("single_speaker_cutoff") is not None:
+                        self.single_cutoff = float(cal["single_speaker_cutoff"])
 
             seg_dir = find_weights_bundle("diarization-segmentation")
             if seg_dir is not None:
@@ -240,7 +240,17 @@ class SpeakerDiarizer:
         """Embed subsegments gathered on the device from the timeline's
         16-sample blocks (span starts lie on 10 ms frames and 0.75 s hops,
         so on block boundaries: the gather is exact), in power-of-two
-        batches of at least ``embedding_batch_size`` and at most 1024."""
+        batches of at least ``embedding_batch_size`` and at most 1024. The
+        ``StatsEmbedder`` takes one MFCC pass over the timeline instead
+        and the span statistics of its f16 frames on the host."""
+        from .models.diarization.embedding import StatsEmbedder
+
+        if isinstance(self._embedder, StatsEmbedder):
+            from .models.diarization.features import mfcc_batch
+
+            m = mfcc_batch(dev_audio[None], sr=sr, n_mfcc=self._embedder.n_mfcc)
+            frames = m[0, :, 1:].half().cpu().numpy().astype(np.float32)
+            return self._embedder.embed_spans(frames, np.asarray(spans, dtype=np.int64), sr)
         win = int(_SUBSEG_S * sr)
         win_blocks = win // _BLOCK
         blocks = dev_audio[: (dev_audio.shape[0] // _BLOCK) * _BLOCK].reshape(-1, _BLOCK)

@@ -1,8 +1,7 @@
 """Typed failures raised by the PyTorch port.
 
-The subset of ``modular_audio_pipeline_tpu/exceptions.py`` that the
-Whisper transcription slice raises, copied so the port never imports the
-JAX package. Same class names, stages and ``str()`` wire format.
+The subset of ``modular_audio_pipeline_tpu/exceptions.py`` that the port
+raises, copied so the port never imports the JAX package. Same class names, stages and ``str()`` wire format.
 """
 
 from __future__ import annotations
@@ -11,7 +10,7 @@ from typing import Any, Dict, Optional
 
 __all__ = [
     "AudioPipelineError", "AudioProcessingError", "TranscriptionError",
-    "ModelLoadError",
+    "ModelLoadError", "VocalSeparationError",
 ]
 
 
@@ -52,6 +51,12 @@ class AudioProcessingError(AudioPipelineError):
 class TranscriptionError(AudioPipelineError):
     """Speech-to-text failed."""
     stage = "transcribe"
+    retryable = True
+
+
+class VocalSeparationError(AudioPipelineError):
+    """Vocal separation failed."""
+    stage = "separate"
     retryable = True
 
 

@@ -1,13 +1,17 @@
-"""Conv x-vector-style speaker embedder (torch).
+"""Speaker embedders (torch).
 
-Counterpart of ``ConvEmbedder`` in
-``modular_audio_pipeline_tpu/models/diarization/embedding.py``: MFCCs
-(c1..c19) -> three convolutions of width 5, 3, 3 with dilations 1, 2, 3
-and symmetric padding, ReLU -> statistics pooling (mean and population
-standard deviation over time) -> linear projection to 192 -> unit norm.
-The f32 convolutions run with TF32 off: the embeddings meet the AHC's
-hard cut-offs. ``StatsEmbedder``, the JAX package's weight-free fallback
-when no bundle exists, is not ported yet and raises.
+Counterparts of ``modular_audio_pipeline_tpu/models/diarization/embedding.py``:
+
+- :class:`StatsEmbedder`, weight-free: the mean and population standard
+  deviation of MFCCs c1..c19 and of their frame deltas, unit norm; the
+  diarizer's fallback when no embedding bundle exists. Per-span
+  statistics of the whole timeline's MFCC frames come from host
+  cumulative sums (:meth:`~StatsEmbedder.embed_spans`, copied).
+- :class:`ConvEmbedder`: MFCCs (c1..c19) -> three convolutions of width
+  5, 3, 3 with dilations 1, 2, 3 and symmetric padding, ReLU -> statistics
+  pooling (mean and population standard deviation over time) -> linear
+  projection to 192 -> unit norm. The f32 convolutions run with TF32 off:
+  the embeddings meet the AHC's hard cut-offs.
 """
 
 from __future__ import annotations
@@ -69,10 +73,67 @@ class ConvEmbedder(nn.Module):
 
 
 class StatsEmbedder:
-    """The weight-free MFCC-statistics embedder: not ported yet."""
+    """MFCC mean/std/delta statistics, L2-normalised, on ``device`` (None:
+    CUDA)."""
 
-    def __init__(self, *args, **kwargs):
-        from ...utils import not_ported
+    def __init__(self, sr: int = 16000, n_mfcc: int = 20, device=None):
+        from ...utils import resolve_device
 
-        raise not_ported("StatsEmbedder (diarization without an embedding bundle)",
-                         "StatsEmbedder")
+        self.sr = sr
+        self.n_mfcc = n_mfcc
+        self.device = resolve_device(device)
+
+    def embed(self, subsegments) -> np.ndarray:
+        """[B, N] float32 (host or on the device) -> [B, 38] unit-norm
+        embeddings on the host."""
+        x = torch.as_tensor(subsegments, dtype=torch.float32, device=self.device)
+        m = mfcc_batch(x, sr=self.sr, n_mfcc=self.n_mfcc)[..., 1:]  # c0 is loudness
+        delta = m[:, 1:] - m[:, :-1]
+        emb = torch.cat([m.mean(dim=1), m.std(dim=1, correction=0),
+                         delta.mean(dim=1), delta.std(dim=1, correction=0)], dim=-1)
+        norm = torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
+        return (emb / torch.clamp(norm, min=1e-8)).cpu().numpy()
+
+    def frame_features(self, audio: np.ndarray, sr: int) -> np.ndarray:
+        """MFCC frames c1..c19 of the whole host signal: [T, 19] on the host
+        (one device pass over the bucket-padded audio)."""
+        from ...ops.bucketing import pad_to_bucket
+
+        frame_len = int(sr * 0.025)
+        hop = int(sr * 0.010)
+        n_valid = max(0, (len(audio) - frame_len) // hop + 1)
+        padded, _ = pad_to_bucket(np.asarray(audio, np.float32), sr)
+        x = torch.from_numpy(np.ascontiguousarray(padded)).to(self.device)
+        m = mfcc_batch(x[None], sr=sr, n_mfcc=self.n_mfcc).cpu().numpy()
+        return m[0, :n_valid, 1:]
+
+    def embed_spans(self, frames: np.ndarray, spans: np.ndarray, sr: int) -> np.ndarray:
+        """Embeddings of sample spans [N, 2] from whole-signal MFCC frames
+        (host numpy): statistics over the global 10 ms frame grid, from
+        cumulative sums."""
+        hop = int(sr * 0.010)
+        t = frames.shape[0]
+        delta = np.diff(frames, axis=0)
+
+        def cum(x):
+            return np.concatenate([np.zeros((1, x.shape[1])), np.cumsum(x, axis=0)])
+
+        c1, c2 = cum(frames), cum(frames**2)
+        d1, d2 = cum(delta), cum(delta**2)
+
+        f_start = np.clip(spans[:, 0] // hop, 0, max(t - 1, 0))
+        f_end = np.clip(spans[:, 1] // hop, f_start + 1, t)
+        n = (f_end - f_start).astype(np.float64)[:, None]
+
+        mean = (c1[f_end] - c1[f_start]) / n
+        var = np.maximum((c2[f_end] - c2[f_start]) / n - mean**2, 0.0)
+
+        de = np.clip(f_end - 1, 1, max(t - 1, 1))
+        ds = np.minimum(f_start, de - 1)
+        dn = np.maximum(de - ds, 1).astype(np.float64)[:, None]
+        dmean = (d1[de] - d1[ds]) / dn
+        dvar = np.maximum((d2[de] - d2[ds]) / dn - dmean**2, 0.0)
+
+        emb = np.concatenate([mean, np.sqrt(var), dmean, np.sqrt(dvar)], axis=1)
+        norm = np.linalg.norm(emb, axis=1, keepdims=True)
+        return (emb / np.maximum(norm, 1e-8)).astype(np.float32)

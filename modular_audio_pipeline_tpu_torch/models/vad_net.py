@@ -13,8 +13,8 @@ Counterpart of ``modular_audio_pipeline_tpu/models/vad_net.py``:
   through a sigmoid (host numpy, copied).
 - :func:`speech_timestamps_from_probs`: Silero's hysteresis
   post-processing (host, copied).
-- :class:`SileroVAD`: the converted torch.hub Silero graph is not ported
-  yet and raises ``NotImplementedError``.
+- :class:`SileroVAD`: the converted torch.hub Silero v5 graph, its LSTM
+  state carried across calls.
 """
 
 from __future__ import annotations
@@ -121,13 +121,80 @@ class ConvVAD(nn.Module):
         return torch.sigmoid(logits[:, 0])
 
 
-class SileroVAD:
-    """The converted torch.hub Silero VAD graph: not ported yet."""
+class SileroVAD(nn.Module):
+    """The public Silero VAD v5 graph (16 kHz branch), from a converted
+    bundle (:mod:`..models.silero_convert`).
 
-    def __init__(self, params: Optional[Dict[str, Any]] = None):
-        from ..utils import not_ported
+    Per 512-sample chunk with 64 samples of left context: the STFT as a
+    basis convolution (n_fft 256, hop 128, VALID) -> magnitude -> four
+    width-3 convolutions (padding 1) with ReLU -> mean over time -> an LSTM
+    cell of 128 (gates i, f, g, o: torch's own layout) carried across
+    chunks -> ReLU -> 1x1 head -> sigmoid. The recurrence runs as one
+    ``nn.LSTM`` call over the whole sequence; the f32 convolutions and the
+    LSTM run with TF32 off, on CUDA unless a device is given.
+    """
 
-        raise not_ported("SileroVAD (a converted torch.hub Silero bundle)", "SileroVAD")
+    CHUNK = 512
+    CONTEXT = 64
+    HID = 128
+
+    def __init__(self, params: Dict[str, Any], device=None):
+        from ..utils import resolve_device
+
+        super().__init__()
+
+        def t(a):
+            return torch.from_numpy(np.array(a, dtype=np.float32))
+
+        self.register_buffer("basis", t(params["stft"]["basis"]))  # [258, 1, 256]
+        for i in range(4):
+            self.register_buffer(f"enc{i}_w", t(params[f"enc{i}"]["w"]))
+            self.register_buffer(f"enc{i}_b", t(params[f"enc{i}"]["b"]))
+        rnn = params["rnn"]
+        self.lstm = nn.LSTM(self.HID, self.HID)
+        with torch.no_grad():
+            self.lstm.weight_ih_l0.copy_(t(rnn["w_ih"]))
+            self.lstm.weight_hh_l0.copy_(t(rnn["w_hh"]))
+            self.lstm.bias_ih_l0.copy_(t(rnn["b_ih"]))
+            self.lstm.bias_hh_l0.copy_(t(rnn["b_hh"]))
+        self.register_buffer("head_w", t(params["head"]["w"])[0, :, 0])  # [128]
+        self.register_buffer("head_b", t(params["head"]["b"]))
+        self.requires_grad_(False)
+        self.to(resolve_device(device))
+
+    def run_carry(self, chunks: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor):
+        """chunks [N, 576] (context prepended), LSTM state h0, c0 [128] ->
+        (probs [N], h, c): the state threads across calls, so a file run
+        in sections equals the whole-file recurrence."""
+        with no_tf32():
+            spec = F.conv1d(chunks[:, None, :], self.basis, stride=128)  # [N, 258, 3]
+            n_bins = self.basis.shape[0] // 2
+            re, im = spec[:, :n_bins], spec[:, n_bins:]
+            x = torch.sqrt(re * re + im * im + 1e-12)
+            for i in range(4):
+                x = F.relu(F.conv1d(x, getattr(self, f"enc{i}_w"), getattr(self, f"enc{i}_b"),
+                                    padding=1))
+            hs, (h, c) = self.lstm(x.mean(dim=-1)[:, None, :], (h0[None, None], c0[None, None]))
+        logits = F.relu(hs[:, 0]) @ self.head_w + self.head_b
+        return torch.sigmoid(logits), h[0, 0], c[0, 0]
+
+    def speech_probs(self, audio: np.ndarray, sr: int) -> np.ndarray:
+        """Host audio -> host probabilities, one per 512-sample chunk (the
+        first chunk's context is zeros)."""
+        if sr != 16000:
+            from ..audio_io import resample_poly
+
+            audio = resample_poly(audio, sr, 16000)
+        n = (len(audio) // self.CHUNK) * self.CHUNK
+        if n == 0:
+            return np.zeros(0, dtype=np.float32)
+        frames = np.asarray(audio[:n], np.float32).reshape(-1, self.CHUNK)
+        ctx = np.zeros((frames.shape[0], self.CONTEXT), dtype=np.float32)
+        ctx[1:] = frames[:-1, -self.CONTEXT:]
+        dev = self.basis.device
+        chunks = torch.from_numpy(np.concatenate([ctx, frames], axis=1)).to(dev)
+        h0 = torch.zeros(self.HID, device=dev)
+        return self.run_carry(chunks, h0, h0)[0].cpu().numpy()
 
 
 def speech_timestamps_from_probs(

@@ -4,6 +4,11 @@ Counterpart of ``modular_audio_pipeline_tpu/serving.py``
 (``ServingPipeline.process`` and ``run_file``) over the port's Whisper
 stack. The waveform stays on the device end to end:
 
+0. with ``vocal_separation.enabled``: the energy-CV music test on the host
+   waveform (``auto_detect``), then the vocal stem, by the
+   ``separation-<model>`` bundle's MaskUNet on the device over 5-minute
+   chunks of the uploaded audio, or by REPET on the host before the upload
+   when no bundle loads;
 1. one upload (int16 PCM stays int16 and is converted on the device); per
    section of at most 600 s, denoise (noise-profile search, stationary
    spectral gate) and the decision statistics: per-1 ms block energies,
@@ -11,7 +16,8 @@ stack. The waveform stays on the device end to end:
    the section peak and K-weighted 100 ms loudness sub-blocks. The host
    combines peaks and sub-blocks into the whole-file peak + gated-LUFS
    gain (:func:`_whole_file_gain`) and rescales the statistics by it;
-2. the trained ConvVAD scores each 32 ms window on the device; the host
+2. the trained ConvVAD (or a converted Silero VAD, its LSTM state carried
+   across 600 s sections) scores each 32 ms window on the device; the host
    intersects silence-kept intervals with its speech and builds the
    :class:`~.protocols.TimestampMapping` table;
 3. a block index map goes up, the device gathers the kept audio (16-sample
@@ -24,10 +30,9 @@ stack. The waveform stays on the device end to end:
 
 As in the JAX package, cuts snap to 16-sample blocks, the 20 ms crossfades
 at cut points of the stage-by-stage path are skipped, and the serving path
-has no temperature ladder. Runs on CUDA unless ``device="cpu"``.
-Unported options raise ``NotImplementedError`` naming their ROADMAP.md
-item: a ``mesh``, ``vocal_separation.enabled``, a converted Silero VAD
-bundle, diarization without an embedding bundle.
+has no temperature ladder. Runs on CUDA unless ``device="cpu"``. A
+``mesh`` (multi-GPU serving) is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ __all__ = ["ServingPipeline"]
 _BLOCK = 16  # samples per gather block (1 ms @ 16 kHz)
 _VAD_FRAME_MS = 32  # 512 samples @ 16 kHz: the VAD window
 _DSP_SECTION_S = 600  # the longest stretch one DSP pass covers
+_NO_DEVICE_SEPARATION = object()  # the bundle was probed: none usable
 
 
 def _dsp_stats(x_ext: torch.Tensor, noise_start: int, sr: int, denoise: bool,
@@ -106,6 +112,21 @@ def _conv_vad_probs(model, feats: torch.Tensor, gain: float) -> torch.Tensor:
     g = torch.tensor(gain, dtype=torch.float32, device=feats.device)
     e = torch.clamp(torch.pow(10.0, feats) - eps, min=0.0)
     return model(torch.log10(g * g * e + eps))
+
+
+def _silero_section(model, x: torch.Tensor, gain: torch.Tensor, h: torch.Tensor,
+                    c: torch.Tensor, tail: torch.Tensor):
+    """The converted Silero VAD over one device section, gain applied:
+    (probabilities, h, c, the last 64 samples). The LSTM state and the
+    64-sample chunk context thread across sections, so a file run in 600 s
+    sections equals the whole-file recurrence."""
+    chunk, ctx_n = model.CHUNK, model.CONTEXT
+    x = x * gain
+    n = (x.shape[0] // chunk) * chunk
+    frames = x[:n].reshape(-1, chunk)
+    prev = torch.cat([tail[None], frames[:-1, -ctx_n:]], dim=0)
+    probs, h, c = model.run_carry(torch.cat([prev, frames], dim=1), h, c)  # [N, 576] in
+    return probs, h, c, frames[-1, -ctx_n:]
 
 
 def _whole_file_gain(
@@ -210,7 +231,9 @@ class ServingPipeline:
             )
         self.diarize_enabled = diarize and self.config.diarization.enabled
         self.word_timestamps = self.config.transcription.word_timestamps
-        self._vad_model = None  # the trained ConvVAD, once resolved
+        self._separation_fn = None  # host separation (REPET), once resolved
+        self._separation_net = None  # the device MaskUNet, once resolved
+        self._vad_model = None  # the ConvVAD or Silero VAD, once resolved
         self._vad_threshold: Optional[float] = None
         self._vad_resolved = False
         self._diarizer = None
@@ -219,9 +242,9 @@ class ServingPipeline:
         self.last_timings: Dict[str, float] = {}
 
     def _resolve_vad(self) -> None:
-        """Load the ``vad-silero`` bundle's ConvVAD; without a loadable
-        bundle the energy-probability VAD runs instead, as in the JAX
-        package."""
+        """Load the ``vad-silero`` bundle (the ConvVAD or a converted Silero
+        VAD); without a loadable bundle the energy-probability VAD runs
+        instead, as in the JAX package."""
         if self._vad_resolved:
             return
         self._vad_resolved = True
@@ -234,8 +257,6 @@ class ServingPipeline:
         try:
             self._vad_model, self._vad_threshold = load_vad_model(
                 cfg.vad.threshold, device=self.device)
-        except NotImplementedError:
-            raise
         except Exception as exc:
             logger.warning("VAD bundle load failed (%s); using energy-probability VAD", exc)
             self._vad_model = None
@@ -243,7 +264,7 @@ class ServingPipeline:
     # -- stages -------------------------------------------------------------
 
     def process(self, audio: np.ndarray, sr: int) -> Dict[str, Any]:
-        from .models.vad_net import ConvVAD
+        from .models.vad_net import ConvVAD, SileroVAD
         from .models.whisper.decode import (
             DecodeOptions,
             _decode_pending,
@@ -257,8 +278,6 @@ class ServingPipeline:
         from .transcriber import _BATCH_BUCKETS
 
         cfg = self.config
-        if cfg.vocal_separation.enabled:
-            raise not_ported("Vocal separation in the serving path", "Separation")
         dev = self.device
         timings: Dict[str, float] = {}
         self.last_timings = timings
@@ -284,12 +303,21 @@ class ServingPipeline:
             audio = resample_poly(audio, sr, target_sr)
             sr = target_sr
 
+        lap("dsp")
+        separated = separate_on_device = False
+        if cfg.vocal_separation.enabled:
+            separated, separate_on_device, audio = self._separate_host(audio, sr)
+            lap("separation")
+
         if audio.dtype != np.int16:  # int16 stays raw: half the upload bytes
             audio = audio.astype(np.float32, copy=False)
         padded, n_valid = pad_to_bucket(audio, sr)
         dev_audio = torch.from_numpy(np.ascontiguousarray(padded)).to(dev)
         dev_f32 = (dev_audio if dev_audio.dtype == torch.float32
                    else dev_audio.float() * (1.0 / 32768.0))
+        if separate_on_device:
+            dev_f32 = dev_audio = self._separate_device(dev_f32, n_valid, sr)
+            lap("separation")
 
         # noise-profile position: device features, host percentile decision
         noise_start = 0
@@ -349,6 +377,16 @@ class ServingPipeline:
         if cfg.vad.enabled and isinstance(self._vad_model, ConvVAD):
             dnn_probs = _conv_vad_probs(self._vad_model, vfeats_d, gain).cpu().numpy()
             dnn_probs = dnn_probs[:n_valid_frames]
+        elif cfg.vad.enabled and isinstance(self._vad_model, SileroVAD):
+            h = c = torch.zeros(SileroVAD.HID, device=dev)
+            tail = torch.zeros(SileroVAD.CONTEXT, device=dev)
+            g_dev = torch.tensor(gain, dtype=torch.float32, device=dev)
+            parts = []
+            for s0 in range(0, len(padded), section):
+                p_, h, c, tail = _silero_section(self._vad_model, dev_proc[s0 : s0 + section],
+                                                 g_dev, h, c, tail)
+                parts.append(p_)
+            dnn_probs = torch.cat(parts).cpu().numpy()[:n_valid_frames]
         elif cfg.vad.enabled and cfg.vad.provider == "webrtc":
             webrtc_keep = self._webrtc_keep(dev_proc, n_valid, sr, gain, n_valid_ms)
         elif cfg.vad.enabled:
@@ -367,7 +405,7 @@ class ServingPipeline:
                 "text": "", "segments": [], "language": self.backend.language,
                 "duration": duration, "kept_duration": 0.0,
                 "timestamp_mappings": [], "diarization": [],
-                "vocal_separation": False,
+                "vocal_separation": separated,
                 "decode_stats": {"n_windows": 0, "tokens_decoded": 0,
                                  "mean_tokens_per_window": 0.0},
             }
@@ -468,7 +506,7 @@ class ServingPipeline:
             "kept_duration": kept_duration,
             "timestamp_mappings": mappings,
             "diarization": diar_turns,
-            "vocal_separation": False,
+            "vocal_separation": separated,
             "decode_stats": {
                 "n_windows": n_windows_decoded,
                 "tokens_decoded": tokens_decoded,
@@ -479,6 +517,53 @@ class ServingPipeline:
         }
 
     # -- helpers ----------------------------------------------------------------
+
+    def _separate_host(self, audio: np.ndarray, sr: int) -> Tuple[bool, bool, np.ndarray]:
+        """(separated, separate on the device, audio): the music test when
+        ``auto_detect`` is on; then the device MaskUNet when the bundle
+        loads (the audio is returned as it came, and separated after the
+        upload), else the host backend over ``chunk_minutes`` chunks (the
+        vocal stem is returned)."""
+        from .ops.music import analyze_audio_content
+        from .separator import get_device_separation, get_separation_backend
+
+        vs = self.config.vocal_separation
+        audio_f = (audio.astype(np.float32) * (1.0 / 32768.0) if audio.dtype == np.int16
+                   else audio)
+        if vs.auto_detect:
+            analysis = analyze_audio_content(audio_f, sr, self.device)
+            logger.info("Music analysis: %s", analysis)
+            if not (analysis.get("has_music", False) and analysis.get("confidence", 0.0) > 0.5):
+                return False, False, audio
+        if self._separation_net is None:
+            self._separation_net = (get_device_separation(vs.model, self.device)
+                                    or _NO_DEVICE_SEPARATION)
+        if self._separation_net is not _NO_DEVICE_SEPARATION:
+            return True, True, audio
+        if self._separation_fn is None:
+            self._separation_fn = get_separation_backend(vs.model, self.device)
+        chunk = max(int(vs.chunk_minutes * 60 * sr), 1)
+        vocals = [self._separation_fn(audio_f[s : s + chunk], sr)[0]
+                  for s in range(0, len(audio_f), chunk)]
+        return True, False, np.concatenate(vocals).astype(np.float32)
+
+    def _separate_device(self, dev_f32: torch.Tensor, n_valid: int, sr: int) -> torch.Tensor:
+        """The MaskUNet's vocal stem of the padded device audio, over the
+        host path's ``chunk_minutes`` grid (a short file is one chunk of
+        its bucket; the last chunk is zero-padded), with the samples past
+        ``n_valid`` set back to zero: resynthesis smears energy into the
+        padding, and the gather's filler blocks must stay silent."""
+        n = dev_f32.shape[0]
+        chunk = max(min(int(self.config.vocal_separation.chunk_minutes * 60 * sr), n), 1)
+        pieces = []
+        for s0 in range(0, n, chunk):
+            seg = dev_f32[s0 : s0 + chunk]
+            if seg.shape[0] < chunk:
+                seg = torch.nn.functional.pad(seg, (0, chunk - seg.shape[0]))
+            pieces.append(self._separation_net.separate_device(seg))
+        out = torch.cat(pieces)[:n]
+        out[n_valid:] = 0.0
+        return out
 
     def run_file(
         self,
@@ -493,7 +578,7 @@ class ServingPipeline:
         alignment, timestamp back-mapping, redundancy removal, segment
         merging. ``audio``/``sr`` skip the file read. Returns a
         :class:`~.pipeline.PipelineResult`; a failure comes back as
-        ``success=False`` (an unported option raises)."""
+        ``success=False``."""
         import json
         import os
         from pathlib import Path
@@ -566,8 +651,6 @@ class ServingPipeline:
                     "rtf": round(result["duration"] / wall, 2) if wall > 0 else None,
                 },
             )
-        except NotImplementedError:
-            raise
         except Exception as exc:
             logger.exception("Serving pipeline failed: %s", exc)
             return PipelineResult(success=False, input_file=str(input_wav), output_file=None,

@@ -3,18 +3,21 @@
 from __future__ import annotations
 
 import functools
+import hashlib
+import json
 import logging
 import os
 import time
+from dataclasses import asdict, dataclass
 from pathlib import Path
-from typing import Any, Callable, List, Optional, TypeVar
+from typing import Any, Callable, Dict, List, Optional, TypeVar
 
 logger = logging.getLogger(__name__)
 
 T = TypeVar("T")
 
 __all__ = ["retry_with_backoff", "weights_search_roots", "find_weights_bundle", "not_ported",
-           "resolve_device"]
+           "resolve_device", "CheckpointManager", "get_file_hash"]
 
 
 def resolve_device(device=None):
@@ -114,3 +117,91 @@ def retry_with_backoff(
         return wrapper
 
     return decorator
+
+
+def get_file_hash(file_path: str, algorithm: str = "md5") -> str:
+    """Streaming content hash used as the checkpoint cache key."""
+    h = hashlib.new(algorithm)
+    with open(file_path, "rb") as f:
+        while chunk := f.read(1 << 16):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+@dataclass
+class Checkpoint:
+    """One completed step: (step, input) -> output, keyed by input hash."""
+
+    step_name: str
+    input_file: str
+    output_file: str
+    input_hash: str
+    timestamp: float
+    metadata: Dict[str, Any]
+
+
+class CheckpointManager:
+    """JSON-persisted step checkpoints for resumable processing.
+
+    Key = ``"{step_name}:{md5(input_file)}"``. A checkpoint is valid only if
+    its output file still exists and the input file's content hash is
+    unchanged.
+    """
+
+    FILENAME = "checkpoints.json"
+
+    def __init__(self, checkpoint_dir: str):
+        self.checkpoint_dir = Path(checkpoint_dir)
+        self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
+        self.checkpoint_file = self.checkpoint_dir / self.FILENAME
+        self._checkpoints: Dict[str, Checkpoint] = {}
+        self._load()
+
+    def _load(self) -> None:
+        if not self.checkpoint_file.exists():
+            return
+        try:
+            with open(self.checkpoint_file, "r") as f:
+                raw = json.load(f)
+            self._checkpoints = {k: Checkpoint(**v) for k, v in raw.items()}
+        except (OSError, ValueError, TypeError) as exc:
+            logger.warning("Failed to load checkpoints: %s", exc)
+            self._checkpoints = {}
+
+    def _save(self) -> None:
+        tmp = self.checkpoint_file.with_suffix(".tmp")
+        with open(tmp, "w") as f:
+            json.dump({k: asdict(v) for k, v in self._checkpoints.items()}, f, indent=2)
+        os.replace(tmp, self.checkpoint_file)  # atomic on POSIX
+
+    def get_checkpoint_key(self, step_name: str, input_file: str) -> str:
+        return f"{step_name}:{get_file_hash(input_file)}"
+
+    def has_valid_checkpoint(self, step_name: str, input_file: str) -> bool:
+        ckpt = self._checkpoints.get(self.get_checkpoint_key(step_name, input_file))
+        if ckpt is None or not Path(ckpt.output_file).exists():
+            return False
+        return get_file_hash(input_file) == ckpt.input_hash
+
+    def get_checkpoint(self, step_name: str, input_file: str) -> Optional[Checkpoint]:
+        if self.has_valid_checkpoint(step_name, input_file):
+            return self._checkpoints[self.get_checkpoint_key(step_name, input_file)]
+        return None
+
+    def save_checkpoint(self, step_name: str, input_file: str, output_file: str,
+                        metadata: Optional[Dict[str, Any]] = None) -> None:
+        self._checkpoints[self.get_checkpoint_key(step_name, input_file)] = Checkpoint(
+            step_name=step_name,
+            input_file=input_file,
+            output_file=output_file,
+            input_hash=get_file_hash(input_file),
+            timestamp=time.time(),
+            metadata=metadata or {},
+        )
+        self._save()
+        logger.debug("Saved checkpoint for %s", step_name)
+
+    def clear(self) -> None:
+        self._checkpoints = {}
+        if self.checkpoint_file.exists():
+            self.checkpoint_file.unlink()

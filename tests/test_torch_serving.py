@@ -32,9 +32,10 @@ SR = 16000
 PROXY = SHIPPED_WEIGHTS / "whisper-tiny-synth-proxy"
 
 
-def configure(cfg, model="test-tiny", weights="random:0", tokens=32, words=True, batch=4):
+def configure(cfg, model="test-tiny", weights="random:0", tokens=32, words=True, batch=4,
+              language="en", compute="float32"):
     t = cfg.transcription
-    t.model, t.weights_path, t.language, t.compute_type = model, weights, "en", "float32"
+    t.model, t.weights_path, t.language, t.compute_type = model, weights, language, compute
     t.beam_size, t.max_decode_tokens, t.batch_size = 5, tokens, batch
     t.word_timestamps = words
     t.no_speech_threshold = None  # every window is parsed, as bench.py
@@ -42,21 +43,30 @@ def configure(cfg, model="test-tiny", weights="random:0", tokens=32, words=True,
 
 
 def pair(model="test-tiny", weights="random:0", tokens=32, words=True, batch=4, diarize=True,
-         edit=lambda cfg: None):
+         edit=lambda cfg: None, language="en", compute_dtype="float32"):
     """(JAX pipeline, port pipeline) of one configuration; the port's
-    backend holds the JAX backend's weights."""
-    jcfg = configure(JaxConfig(media_dir="/tmp"), model, weights, tokens, words, batch)
-    pcfg = configure(PipelineConfig(), model, weights, tokens, words, batch)
+    backend holds the JAX backend's weights. ``compute_dtype="int8"``
+    loads float32 weights and quantises the decoder, in both packages (the
+    paired tests run float32 activations: XLA on the CPU has no batched
+    bf16 product)."""
+    jcfg = configure(JaxConfig(media_dir="/tmp"), model, weights, tokens, words, batch,
+                     language, compute_dtype)
+    pcfg = configure(PipelineConfig(), model, weights, tokens, words, batch, language,
+                     compute_dtype)
     edit(jcfg)
     edit(pcfg)
     jp = jax_serving.ServingPipeline(jcfg, diarize=diarize)
+    jp.backend.compute_dtype = "float32"
     jp.backend.load()
+    jp.backend.compute_dtype = compute_dtype
+    jp.backend._maybe_quantize()
     t = pcfg.transcription
     backend = TorchWhisperBackend(
-        t.model, language="en", beam_size=5, weights_path=weights, compute_dtype="float32",
-        batch_size=batch, max_decode_tokens=tokens, word_timestamps=words,
-        no_speech_threshold=None, device="cpu")
+        t.model, language=language, beam_size=5, weights_path=weights,
+        compute_dtype="float32", batch_size=batch, max_decode_tokens=tokens,
+        word_timestamps=words, no_speech_threshold=None, device="cpu")
     backend.load()
+    backend.compute_dtype = compute_dtype
     backend.params = params_from_numpy(jax.tree.map(np.asarray, jp.backend.params), "cpu",
                                        torch.float32)
     return jp, pt_serving.ServingPipeline(pcfg, backend=backend, diarize=diarize, device="cpu")
@@ -86,7 +96,7 @@ def run_file_and_process(pipe, wav, results_dir):
     return out, json.loads(open(out.output_file, encoding="utf-8").read()), seen[0]
 
 
-def assert_equal_results(got, want):
+def assert_equal_results(got, want, confidence_tol=5e-4):
     assert set(got) == set(want)
     assert mappings(got) == mappings(want)
     for key in ("kept_duration", "decode_stats", "diarization", "duration", "language",
@@ -94,7 +104,8 @@ def assert_equal_results(got, want):
         assert got[key] == want[key], key
     assert segments(got) == segments(want)
     np.testing.assert_allclose([s["confidence"] for s in got["segments"]],
-                               [s["confidence"] for s in want["segments"]], rtol=0, atol=5e-4)
+                               [s["confidence"] for s in want["segments"]], rtol=0,
+                               atol=confidence_tol)
 
 
 @pytest.fixture(scope="module")
@@ -102,26 +113,39 @@ def tiny_pair():
     return pair()
 
 
-def test_test_tiny_process_and_run_file_equal_jax(tiny_pair, tmp_path):
-    """test-tiny, random weights carried across, 70 s of voiced audio as
-    int16 PCM (converted on the device), the default VAD (ConvVAD bundle),
-    denoise, diarization and word timestamps."""
+def check_test_tiny(jp, pp, tmp_path, confidence_tol=5e-4):
+    """process and run_file of both pipelines on 70 s of voiced audio as
+    int16 PCM: equal results and JSON."""
     from modular_audio_pipeline_tpu.audio_io import write_wav
 
-    jp, pp = tiny_pair
     audio = np.round(make_audio(70.0) * 32767).astype(np.int16)
     wav = tmp_path / "voiced.wav"
     write_wav(str(wav), audio.astype(np.float32) / 32768.0, SR)  # read back as int16
     out_j, doc_j, want = run_file_and_process(jp, wav, tmp_path / "jax")
     out_p, doc_p, got = run_file_and_process(pp, wav, tmp_path / "pt")
     assert want["kept_duration"] > 0 and want["segments"] and want["diarization"]
-    assert any(s.get("words") for s in want["segments"])
-    assert_equal_results(got, want)
+    assert any(s.get("words") for s in want["segments"]) == pp.word_timestamps
+    assert_equal_results(got, want, confidence_tol)
     assert type(pp._vad_model).__name__ == "ConvVAD"
     assert pp._diarizer._segmentation is not None and not pp._diarizer._use_noop
     assert doc_p == doc_j and doc_j["segments"]
     assert out_p.segments == out_j.segments
     assert set(out_p.metadata) == set(out_j.metadata)
+    return got
+
+
+def test_test_tiny_process_and_run_file_equal_jax(tiny_pair, tmp_path):
+    """test-tiny, random weights carried across, 70 s of voiced audio as
+    int16 PCM (converted on the device), the default VAD (ConvVAD bundle),
+    denoise, diarization and word timestamps."""
+    check_test_tiny(*tiny_pair, tmp_path)
+
+
+def test_test_tiny_language_auto_equal_jax(tmp_path):
+    """The same file and configuration with ``language="auto"``: language
+    detection on the first kept window inside ``process``."""
+    got = check_test_tiny(*pair(language="auto"), tmp_path)
+    assert got["language"] != "auto"
 
 
 def test_silent_audio_takes_the_early_return(tiny_pair):
@@ -132,7 +156,7 @@ def test_silent_audio_takes_the_early_return(tiny_pair):
     assert_equal_results(got, want)
 
 
-def test_proxy_sentences_equal_jax(tmp_path):
+def check_proxy(tmp_path, compute_dtype="float32", confidence_tol=5e-4):
     """The shipped proxy bundle on its two held-out sentences in one file
     with silent gaps, the default (ConvVAD) VAD: the JAX result is not
     trivial, and the port's equals it, run_file's JSON with the mappings
@@ -151,16 +175,49 @@ def test_proxy_sentences_equal_jax(tmp_path):
     def no_merge(cfg):
         cfg.segment_merging.enabled = False
 
-    jp, pp = pair("tiny", str(PROXY), tokens=128, batch=16, edit=no_merge)
+    jp, pp = pair("tiny", str(PROXY), tokens=128, batch=16, edit=no_merge,
+                  compute_dtype=compute_dtype)
     wav = tmp_path / "proxy.wav"
     write_wav(str(wav), audio, SR)
     _, doc_j, want = run_file_and_process(jp, wav, tmp_path / "jax")
     _, doc_p, got = run_file_and_process(pp, wav, tmp_path / "pt")
     assert want["kept_duration"] > 0 and want["segments"] and want["diarization"]
     assert all(s.get("words") for s in want["segments"])
-    assert_equal_results(got, want)
-    assert doc_p == doc_j
+    assert_equal_results(got, want, confidence_tol)
+    if compute_dtype == "float32":
+        assert doc_p == doc_j
+    else:  # equal but for the confidences, held to confidence_tol above
+        def drop(doc):
+            return {**doc, "segments": [{k: v for k, v in s.items() if k != "confidence"}
+                                        for s in doc["segments"]]}
+
+        assert drop(doc_p) == drop(doc_j)
     assert all({"original_start", "original_end"} <= set(s) for s in doc_j["segments"])
+    return pp
+
+
+def test_proxy_sentences_equal_jax(tmp_path):
+    check_proxy(tmp_path)
+
+
+def test_proxy_sentences_int8_equal_jax(tmp_path, monkeypatch):
+    """The same with the int8 decoder (``compute_type="int8"``) inside
+    ``process``. On the CPU the JAX package's int8 product takes its XLA
+    branch, which rounds each dequantised weight to bf16; it is bound here
+    to its Pallas kernel's arithmetic, which the port's plain version
+    follows (tests/test_torch_quant.py). Segments and words are equal, the
+    confidences agree to 2e-3. (On test-tiny's random weights the int8
+    decode is not comparable: both round the activations to bf16, values
+    1e-6 apart round to neighbouring bf16 values now and then, and near-flat
+    logits and attention turn that into other beams and DTW paths; with the
+    products in f32 test-tiny is equal too. ROADMAP.md §C.)"""
+    from test_torch_quant import _kernel_arithmetic
+
+    from modular_audio_pipeline_tpu.ops import quant as jax_quant
+
+    monkeypatch.setattr(jax_quant, "int8_matmul", _kernel_arithmetic)
+    pp = check_proxy(tmp_path, "int8", confidence_tol=2e-3)
+    assert "logits_wq" in pp.backend.params["decoder"]
 
 
 @pytest.mark.parametrize("provider", ["webrtc", "energy"])
@@ -211,54 +268,70 @@ def test_sectioned_dsp_matches_the_whole_file(monkeypatch):
     assert_equal_results(sectioned[1], sectioned[0])
 
 
-def test_default_device_is_cuda():
-    """ServingPipeline, the diarizer and the three networks target CUDA
-    when no device is given, and raise on a machine without it."""
+def test_default_device_is_cuda(tmp_path):
+    """ServingPipeline, the diarizer, the separator, the separation backend,
+    the networks and the StatsEmbedder target CUDA when no device is given,
+    and raise on a machine without it; so do the weight-free REPET and music
+    test, whose results are host arrays."""
+    from test_torch_silero import synthetic_state_dict
+
     from modular_audio_pipeline_tpu_torch.diarizer import SpeakerDiarizer
-    from modular_audio_pipeline_tpu_torch.models.diarization.embedding import ConvEmbedder
+    from modular_audio_pipeline_tpu_torch.models.diarization.embedding import (
+        ConvEmbedder,
+        StatsEmbedder,
+    )
     from modular_audio_pipeline_tpu_torch.models.diarization.segmentation import SegmentationNet
-    from modular_audio_pipeline_tpu_torch.models.vad_net import ConvVAD
+    from modular_audio_pipeline_tpu_torch.models.separation.repet import repet_separate
+    from modular_audio_pipeline_tpu_torch.models.separation.unet import MaskUNet
+    from modular_audio_pipeline_tpu_torch.models.silero_convert import convert_state_dict
+    from modular_audio_pipeline_tpu_torch.models.vad_net import ConvVAD, SileroVAD
     from modular_audio_pipeline_tpu_torch.models.whisper.convert import load_params
+    from modular_audio_pipeline_tpu_torch.ops.music import analyze_audio_content
+    from modular_audio_pipeline_tpu_torch.separator import VocalSeparator, get_separation_backend
     from modular_audio_pipeline_tpu_torch.vad import load_vad_model
 
-    builds = [
+    holders = [
         lambda: pt_serving.ServingPipeline(),
         lambda: SpeakerDiarizer(),
         lambda: load_vad_model(),
         lambda: ConvVAD(load_params(str(SHIPPED_WEIGHTS / "vad-silero"))),
         lambda: SegmentationNet(load_params(str(SHIPPED_WEIGHTS / "diarization-segmentation"))),
         lambda: ConvEmbedder(load_params(str(SHIPPED_WEIGHTS / "diarization-embedding"))),
+        lambda: SileroVAD(convert_state_dict(synthetic_state_dict())),
+        lambda: MaskUNet(load_params(str(SHIPPED_WEIGHTS / "separation-htdemucs"))),
+        lambda: StatsEmbedder(),
+        lambda: VocalSeparator(SR, str(tmp_path / "sep")),
+        lambda: get_separation_backend("htdemucs").__self__,  # the bundle's MaskUNet
     ]
-    for build in builds:
-        if torch.cuda.is_available():
+    weight_free = [
+        lambda: repet_separate(np.zeros(SR, np.float32), SR),
+        lambda: analyze_audio_content(np.zeros(SR, np.float32), SR),
+    ]
+    for build in holders + weight_free:
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA"):
+                build()
+        elif build in weight_free:
+            build()
+        else:
             obj = build()
             dev = obj[0] if isinstance(obj, tuple) else obj
             if isinstance(dev, torch.nn.Module):
-                assert next(dev.parameters()).device.type == "cuda"
+                tensors = list(dev.parameters()) + list(dev.buffers())
+                assert tensors and all(t.device.type == "cuda" for t in tensors)
             else:
                 assert dev.device.type == "cuda"
-        else:
-            with pytest.raises(RuntimeError, match="CUDA"):
-                build()
 
 
-@pytest.mark.parametrize("option", ["mesh", "mesh_shape", "separation", "silero_bundle"])
-def test_unported_options_raise(option, tmp_path, monkeypatch):
+@pytest.mark.parametrize("option", ["mesh", "mesh_shape"])
+def test_unported_options_raise(option):
     cfg = configure(PipelineConfig())
     mesh = None
     if option == "mesh":
         mesh = object()
-    elif option == "mesh_shape":
+    else:
         cfg = configure(JaxConfig(media_dir="/tmp"))
         cfg.tpu.mesh_shape = {"data": 2}
-    elif option == "separation":
-        cfg.vocal_separation.enabled = True
-    else:  # a converted torch.hub Silero bundle in the search root
-        bundle = tmp_path / "vad-silero"
-        bundle.mkdir()
-        np.savez(bundle / "params.npz", **{"stft/basis": np.zeros((258, 1, 256), np.float32),
-                                           "rnn/w_ih": np.zeros((512, 128), np.float32)})
-        monkeypatch.setenv("MAP_TPU_WEIGHTS", str(tmp_path))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pipe = pt_serving.ServingPipeline(cfg, device="cpu", mesh=mesh)
         pipe.process(np.zeros(SR, np.float32), SR)
