@@ -97,6 +97,25 @@ Phases (any failure exits non-zero and prints no result line):
    bundle; the MaskUNet's device time per 5-minute chunk beside its
    reckoned f32 operations; and the flash kernel at the large-v3 encoder
    shape [8, 20, 1500, 64] bf16, timed beside its bound.
+8. Bench config 5 of the JAX package (a batch directory run with
+   checkpoint/resume) cut to one card: three 4-minute files of four-voice
+   speech from the port's voice model (a 16 kHz WAV, a 44.1 kHz stereo
+   WAV, a FLAC encoded by ``tests/flac_ref.py``), large-v3-turbo at full
+   width and depth with random weights, beam 5, 224 tokens, the int8 KV
+   cache, the no-speech gate off, the ``PipelineConfig`` defaults
+   otherwise (faster-whisper, denoise, the ConvVAD, diarization, words,
+   redundancy removal, merging). First ``BatchDriver.run()`` in this
+   process, ``AudioPipeline`` per file: each file's stage timings, wall
+   time, realtime factor, kept seconds and VAD cut (device or host) are
+   printed; the flash and ancestry kernels must launch (counts reset just
+   before, read just after) and the native library must have loaded.
+   Then ``python -m modular_audio_pipeline_tpu_torch --batch --serving``
+   in a subprocess, as bench_batch.py drives main.py: SIGINT once the
+   first ledger entry lands must exit 130, the rerun must skip the
+   finished files and succeed on every file, and every output JSON must
+   have the schema's keys. Last, the proxy bundle's file through
+   ``AudioPipeline`` with the kernels and with the plain versions: equal
+   segments and JSON.
 
 Float32 products run in full f32 (TF32 off for matmuls and cuDNN
 convolutions). The last lines are the card, the per-kernel JSON line and
@@ -1056,8 +1075,15 @@ def _check_serving(result, seconds: float, label: str) -> None:
         prev_p, prev_o = m.processed_end, m.original_end
     if abs(prev_p - kept) > 1e-3:
         raise AssertionError(f"{label}: mappings cover {prev_p} s of {kept} s kept")
+    # A segment ends inside the kept audio, but its words may carry it
+    # further: the word times of the last window's DTW path can run into
+    # the window's zero padding, and the segment takes its words' bounds
+    # (the JAX package's _apply_words): bound those by the decoded windows.
+    grid = 30.0 * result["decode_stats"]["n_windows"]
     for s in result["segments"]:
-        if not (0.0 <= s["start"] <= s["end"] <= kept + 1e-6 and isinstance(s["text"], str)):
+        end_bound = grid if s.get("words") else kept
+        if not (0.0 <= s["start"] <= min(s["end"], kept + 1e-6) and s["end"] <= end_bound + 1e-6
+                and isinstance(s["text"], str)):
             raise AssertionError(f"{label}: malformed segment {s}")
     for d in result["diarization"]:
         if not (d["speaker"].startswith("SPEAKER_") and 0.0 <= d["start"] < d["end"] <= kept + 1e-6):
@@ -1567,6 +1593,255 @@ def flash_at(torch, shape) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
 
+# -- phase 8 -----------------------------------------------------------------
+
+BATCH_FILES = ("a_meeting.wav", "b_panel_44k_stereo.wav", "c_interview.flac")
+JSON_CONFIG_KEYS = {"model", "language", "vad_provider", "transcription_backend"}
+
+
+def batch_directory(media: Path, seconds: float) -> list:
+    """Bench config 5's directory cut to one card and the smoke's time:
+    three files of continuous four-voice speech from the port's voice
+    model (``voiced_speech`` with seeds 11, 12, 13), as a 16 kHz mono WAV,
+    a 44.1 kHz stereo WAV (the right channel at 0.8 of the left; it takes
+    the media handler's resample path) and a 16 kHz 16-bit FLAC encoded by
+    ``tests/flac_ref.py``. Returns the paths in ``BATCH_FILES`` order."""
+    import wave
+    from math import gcd
+
+    from scipy.signal import resample_poly
+
+    from modular_audio_pipeline_tpu_torch.audio_io import write_wav
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from flac_ref import encode_flac
+
+    media.mkdir(parents=True, exist_ok=True)
+    paths = [media / name for name in BATCH_FILES]
+    write_wav(str(paths[0]), voiced_speech(seconds, seed=11), SR)
+
+    g = gcd(44100, SR)
+    left = resample_poly(voiced_speech(seconds, seed=12), 44100 // g, SR // g)
+    stereo = np.stack([left, 0.8 * left], axis=1)
+    pcm = np.clip(np.round(stereo * 32767.0), -32768, 32767).astype("<i2")
+    with wave.open(str(paths[1]), "wb") as wf:
+        wf.setnchannels(2)
+        wf.setsampwidth(2)
+        wf.setframerate(44100)
+        wf.writeframes(pcm.tobytes())
+
+    pcm = np.clip(np.round(voiced_speech(seconds, seed=13) * 32767.0), -32768, 32767)
+    paths[2].write_bytes(encode_flac(pcm.astype(np.int64), SR))
+    return paths
+
+
+def batch_config(media: Path, results: Path):
+    """Bench config 5's settings: large-v3-turbo at full width and depth,
+    random weights from seed 0, beam 5, 224 tokens, the int8 KV cache, the
+    no-speech gate off (as bench.py), the PipelineConfig defaults
+    otherwise (faster-whisper, denoise, the Silero-provider VAD on the
+    shipped ConvVAD bundle, diarization on the shipped bundles, word
+    timestamps, redundancy removal and merging)."""
+    from modular_audio_pipeline_tpu_torch.config import PipelineConfig
+
+    cfg = PipelineConfig(media_dir=str(media), results_dir=str(results))
+    t = cfg.transcription
+    t.model, t.language, t.weights_path = "large-v3-turbo", "en", "random:0"
+    t.beam_size, t.max_decode_tokens, t.kv_cache_dtype = 5, 224, "int8"
+    t.no_speech_threshold = None
+    return cfg
+
+
+def _check_output_json(path: str, label: str) -> int:
+    """The JAX package's output schema; returns the segment count."""
+    doc = json.loads(Path(path).read_text(encoding="utf-8"))
+    meta = doc.get("metadata", {})
+    if set(meta.get("config", {})) != JSON_CONFIG_KEYS or "source_file" not in meta:
+        raise AssertionError(f"{label}: metadata {meta} lacks the schema's keys")
+    for s in doc["segments"]:
+        if not ({"speaker", "start", "end", "text"} <= set(s) and s["start"] <= s["end"]):
+            raise AssertionError(f"{label}: segment {s} lacks the schema's keys")
+    return len(doc["segments"])
+
+
+def phase_batch(torch, tmp: Path, seconds: float):
+    """Bench config 5: BatchDriver.run() over the directory in this process
+    (AudioPipeline per file), then the CLI's serving batch in a subprocess,
+    interrupted after its first ledger entry and run again, then the proxy
+    bundle's sentences through AudioPipeline with kernels and with plain
+    versions."""
+    from collections import Counter
+
+    from modular_audio_pipeline_tpu_torch import pipeline as pipeline_mod
+    from modular_audio_pipeline_tpu_torch.audio_io import wav_info
+    from modular_audio_pipeline_tpu_torch.parallel.batch import BatchDriver
+    from modular_audio_pipeline_tpu_torch.runtime import native_lib
+
+    t0 = time.perf_counter()
+    media = tmp / "batch"
+    paths = batch_directory(media, seconds)
+    log(f"batch: made {len(paths)} files of {seconds:.0f} s in {time.perf_counter() - t0:.1f} s")
+
+    results = tmp / "batch_results"
+    runs = []
+    real_run = pipeline_mod.AudioPipeline.run
+
+    def spy(self, input_file=None):
+        out = real_run(self, input_file)
+        runs.append((out, getattr(self.vad, "last_cut", None)))
+        return out
+
+    wrappers = _reset_launches()
+    torch.cuda.synchronize()
+    pipeline_mod.AudioPipeline.run = spy
+    try:
+        t0 = time.perf_counter()
+        summary = BatchDriver(batch_config(media, results), device="cuda").run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pipeline_mod.AudioPipeline.run = real_run
+    launches = {name: w.launches for name, w in wrappers.items()}
+    cuts = Counter(cut for _, cut in runs)
+    per_file = []
+    for out, cut in runs:
+        if not out.success:
+            raise AssertionError(f"batch: {out.input_file} failed: {out.error}")
+        stem = Path(out.output_file).name[: -len("_transcription.json")]
+        voiced = sorted(results.glob(f"{stem}*_voice.wav"))
+        kept = wav_info(str(voiced[0]))["duration"] if voiced else None
+        n_segments = _check_output_json(out.output_file, "batch")
+        m = out.metadata
+        per_file.append({"file": Path(out.input_file).name, "wall_time_s": m["wall_time_s"],
+                         "audio_duration_s": m["audio_duration_s"], "rtf": m["rtf"],
+                         "kept_s": kept, "segments": n_segments, "vad_cut": cut,
+                         "stage_timings": m["stage_timings"]})
+        log(f"batch: {per_file[-1]}")
+    log(f"batch: AudioPipeline over {len(runs)} files in {wall:.3f} s, summary {summary}, "
+        f"launches {launches}, VAD cuts {dict(cuts)}, native library loaded "
+        f"{native_lib._lib is not None}")
+    if summary["succeeded"] != len(paths) or summary["failed"] or len(runs) != len(paths):
+        raise AssertionError(f"batch: {summary}")
+    if launches["flash_attention"] <= 0 or launches["ancestor_attention"] <= 0:
+        raise AssertionError(f"batch: AudioPipeline skipped a kernel: {launches}")
+    if not native_lib.have_native():
+        raise AssertionError("batch: the native library did not load")
+    torch.cuda.empty_cache()
+
+    serving = phase_batch_cli(tmp, media)
+    proxy = phase_batch_proxy(torch, tmp)
+    audio_s = sum(f["audio_duration_s"] for f in per_file)
+    return launches, {"files": per_file, "wall_s": wall, "summary": summary,
+                      "audio_hours_per_card_hour": audio_s / wall, "vad_cuts": dict(cuts),
+                      "serving_cli": serving, "proxy": proxy}
+
+
+def phase_batch_cli(tmp: Path, media: Path) -> dict:
+    """``python -m modular_audio_pipeline_tpu_torch --batch --serving`` over
+    the directory in a subprocess, as bench_batch.py drives main.py: SIGINT
+    once the first ledger entry lands must exit 130; the rerun must skip
+    the finished files and succeed on every file."""
+    import re
+    import signal
+
+    out_dir = tmp / "serving_results"
+    config = tmp / "batch_config.json"
+    batch_config(media, out_dir).to_json(str(config))
+    cmd = [sys.executable, "-m", "modular_audio_pipeline_tpu_torch", "--batch", "--serving",
+           "--config", str(config), "--media-dir", str(media), "--output-dir", str(out_dir)]
+    status = out_dir / "batch_status.json"
+
+    def ledger() -> dict:
+        try:
+            return json.loads(status.read_text())
+        except (OSError, ValueError):
+            return {}
+
+    log_1 = tmp / "cli_interrupted.log"
+    t0 = time.perf_counter()
+    with open(log_1, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+        try:
+            while proc.poll() is None and not ledger():
+                if time.perf_counter() - t0 > 240:
+                    raise AssertionError("batch cli: no ledger entry within 240 s")
+                time.sleep(0.05)
+            first_entry_s = time.perf_counter() - t0
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    done_before = ledger()
+    log(f"batch cli: first ledger entry after {first_entry_s:.1f} s, SIGINT -> exit code {rc}, "
+        f"{len(done_before)} of {len(BATCH_FILES)} files in the ledger")
+    if rc != 130:
+        raise AssertionError(f"batch cli: interrupted run exited {rc}, not 130:\n"
+                             + log_1.read_text()[-3000:])
+
+    t0 = time.perf_counter()
+    rerun = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    rerun_s = time.perf_counter() - t0
+    done = ledger()
+    if rerun.returncode != 0:
+        raise AssertionError(f"batch cli: rerun exited {rerun.returncode}:\n"
+                             + rerun.stdout[-3000:] + rerun.stderr[-2000:])
+    skipped = [k for k, v in done_before.items()
+               if v.get("success") and done[k]["finished_at"] == v["finished_at"]]
+    said = re.search(r"'skipped': (\d+)", rerun.stdout)
+    if len(done) != len(BATCH_FILES) or not all(v["success"] for v in done.values()):
+        raise AssertionError(f"batch cli: ledger after the rerun {done}")
+    if not skipped or said is None or int(said.group(1)) != len(skipped):
+        raise AssertionError(f"batch cli: rerun skipped {skipped}, said {said and said.group(0)}")
+    n_segments = [_check_output_json(v["output_file"], "batch cli") for v in done.values()]
+    ran = [v for k, v in done.items() if k not in skipped]
+    ran_audio = sum(v["audio_duration_s"] for v in ran)
+    ran_wall = sum(v["wall_time_s"] for v in ran)
+    log(f"batch cli: rerun exit 0 in {rerun_s:.1f} s, skipped {len(skipped)}, ran {len(ran)} "
+        f"files: {ran_audio:.1f} s of audio in {ran_wall:.3f} s of run_file "
+        f"({ran_audio / ran_wall:.1f} audio-hours per card-hour), segments {n_segments}")
+    return {"first_entry_s": first_entry_s, "interrupt_rc": rc, "rerun_s": rerun_s,
+            "skipped": len(skipped), "ran": len(ran), "ledger": done,
+            "audio_hours_per_card_hour": ran_audio / ran_wall}
+
+
+def phase_batch_proxy(torch, tmp: Path) -> dict:
+    """The proxy bundle's file through AudioPipeline (word timestamps off,
+    merging off) with the kernels and with the plain versions: equal
+    segments and JSON, back-mapped times inside the file."""
+    from modular_audio_pipeline_tpu_torch.audio_io import write_wav
+    from modular_audio_pipeline_tpu_torch.pipeline import AudioPipeline
+
+    media = tmp / "proxy_media"
+    media.mkdir()
+    audio = proxy_file(np.random.default_rng(500_000))
+    seconds = len(audio) / SR
+    wav = media / "proxy.wav"
+    write_wav(str(wav), audio, SR)
+    cfg = serving_config("tiny", str(PROXY), 128, False)
+    cfg.media_dir, cfg.temp_dir, cfg.results_dir = str(media), None, None
+    cfg.segment_merging.enabled = False
+    cfg.__post_init__()
+    pipe = AudioPipeline(cfg, device="cuda")
+    kernel = pipe.run(str(wav))
+    doc_kernel = Path(kernel.output_file).read_text()
+    with plain_kernels():
+        plain = pipe.run(str(wav))
+    doc_plain = Path(plain.output_file).read_text()
+    log(f"batch proxy: {seconds:.2f} s, {len(kernel.segments)} segments, text "
+        f"'{' '.join(s['text'] for s in kernel.segments)[:80]}', kernels vs plain: segments "
+        f"equal {kernel.segments == plain.segments}, JSON equal {doc_kernel == doc_plain}")
+    if not (kernel.success and plain.success and kernel.segments):
+        raise AssertionError(f"batch proxy: {kernel.error or plain.error or 'no segment'}")
+    if kernel.segments != plain.segments or doc_kernel != doc_plain:
+        raise AssertionError("batch proxy: AudioPipeline differs between kernels and plain versions")
+    for s in kernel.segments:
+        if not 0.0 <= s["original_start"] <= s["original_end"] <= seconds + 1e-6:
+            raise AssertionError(f"batch proxy: segment {s}")
+    return {"segments": len(kernel.segments), "stage_timings": kernel.metadata["stage_timings"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -1625,6 +1900,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         separation["phase_s"] = time.perf_counter() - t0
         log(f"phase 7 done in {separation['phase_s']:.1f} s")
+        t0 = time.perf_counter()
+        launches_batch, batch = phase_batch(torch, Path(d), 4 * 60.0)
+        torch.cuda.empty_cache()
+        batch["phase_s"] = time.perf_counter() - t0
+        log(f"phase 8 done in {batch['phase_s']:.1f} s")
     # each kernel's count from the main path that brings it: phase 6 (the
     # serving path) for the flash and ancestry kernels, phase 4b (the one
     # path with compute_type="int8") for the int8 product; each must also
@@ -1639,13 +1919,16 @@ def main() -> int:
         if name != "int8_matmul" and launches_sep[name] <= 0:
             raise AssertionError(f"{name} was not launched on the separation path")
         k["launches_separation_path"] = launches_sep[name]
+        if name != "int8_matmul" and launches_batch[name] <= 0:
+            raise AssertionError(f"{name} was not launched by AudioPipeline")
+        k["launches_audio_pipeline"] = launches_batch[name]
         if name == "flash_attention":
             k["large_v3_encoder_batch8"] = separation["flash_encoder_batch8"]
         if name == "ancestor_attention":
             k["large_v3_batch8"] = separation["ancestry_batch8"]
     log(json.dumps({"end_to_end": e2e, "end_to_end_int8": e2e_int8,
                     "launches_bf16_path": launches, "proxy": proxy, "serving": serving,
-                    "separation": separation}))
+                    "separation": separation, "batch": batch}))
 
     print(name_power)
     print(json.dumps({"kernels": kernels}))

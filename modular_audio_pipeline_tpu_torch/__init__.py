@@ -13,15 +13,19 @@ around it (``ServingPipeline.process`` and ``run_file``: auto-detected vocal
 separation by the MaskUNet or REPET, denoise and loudness statistics, the
 trained ConvVAD or a converted Silero VAD, the window gather, the trained
 segmentation + embedding diarization stack or the weight-free statistics
-embedder, speaker alignment and the JSON output).
+embedder, speaker alignment and the JSON output); the stage-by-stage
+``AudioPipeline`` with dependency injection, WAV checkpoints per stage
+and the timestamp mappings, its media handler with native FLAC/MP3
+decoders, the checkpointed ``BatchDriver`` and the CLI
+(``python -m modular_audio_pipeline_tpu_torch``, the flags of the
+repository's ``main.py``).
 
 Example::
 
-    from modular_audio_pipeline_tpu_torch import PipelineConfig, ServingPipeline
+    from modular_audio_pipeline_tpu_torch import AudioPipeline, PipelineConfig
 
-    cfg = PipelineConfig()
-    cfg.transcription.model = "large-v3-turbo"
-    result = ServingPipeline(cfg).run_file("meeting.wav", "results/")  # CUDA
+    cfg = PipelineConfig.from_json("config.json")
+    result = AudioPipeline(cfg).run("meeting.mp3")  # CUDA; device="cpu" for the CPU
 
 Names are resolved on first access, so importing the package loads no
 model code.
@@ -29,11 +33,16 @@ model code.
 
 import importlib
 
-__all__ = ["WhisperTranscriber", "TorchWhisperBackend", "ServingPipeline",
+__all__ = ["WhisperTranscriber", "FasterWhisperTranscriber", "TorchWhisperBackend",
+           "ServingPipeline", "AudioPipeline", "PipelineResult", "BatchDriver",
            "TranscriptionConfig", "PipelineConfig", "ModelLoadError", "TranscriptionError"]
 
 _HOME = {
     "ServingPipeline": ".serving",
+    "AudioPipeline": ".pipeline",
+    "PipelineResult": ".pipeline",
+    "BatchDriver": ".parallel.batch",
+    "FasterWhisperTranscriber": ".transcriber",
     "WhisperTranscriber": ".transcriber",
     "TorchWhisperBackend": ".transcriber",
     "TranscriptionConfig": ".config",

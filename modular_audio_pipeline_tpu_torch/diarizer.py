@@ -1,7 +1,11 @@
-"""Speaker diarization over a device-resident timeline (the serving tier).
+"""Speaker diarization: the stage (``diarize``) and the serving tier.
 
-Counterpart of the device path of ``modular_audio_pipeline_tpu/diarizer.py``
-(``SpeakerDiarizer.diarize_device_timeline`` and what it calls):
+Counterpart of ``modular_audio_pipeline_tpu/diarizer.py``.
+``diarize(path)`` reads the previous stage's published buffer: a device
+tensor goes through :meth:`SpeakerDiarizer.diarize_device_timeline`, a
+host array or a file through the host path (the same regions from the
+host audio, subsegments cut on the host, the embedder's batches
+uploaded). The device timeline:
 
 1. speech regions from the powerset ``SegmentationNet`` over MFCCs of the
    whole timeline, cut into 10 s windows at a 1 s step by ``unfold`` and
@@ -17,7 +21,8 @@ Counterpart of the device path of ``modular_audio_pipeline_tpu/diarizer.py``
 Only activities, embeddings and (for the ``StatsEmbedder``) f16 MFCC
 frames cross to the host. As in the JAX package, a bundle that fails to
 load degrades to one ``SPEAKER_00`` turn over the whole timeline
-(``_use_noop``). Runs on CUDA unless ``device="cpu"``.
+(``_use_noop``). :class:`NoOpDiarizer` attributes the whole file to
+``SPEAKER_00``. Runs on CUDA unless ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -29,20 +34,51 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .protocols import DiarizationSegment
-from .utils import resolve_device
+from .audio_io import get_buffer, read_wav
+from .config import RetryConfig
+from .exceptions import DiarizationError
+from .protocols import DiarizationSegment, DiarizerProtocol
+from .utils import get_audio_duration, resolve_device, retry_with_backoff
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["SpeakerDiarizer"]
+__all__ = ["SpeakerDiarizer", "NoOpDiarizer", "identify_speakers"]
 
 _SUBSEG_S = 1.5
 _SUBSEG_HOP_S = 0.75
+
+
+def identify_speakers(
+    voiceprints: Dict[str, np.ndarray],
+    references: Dict[str, np.ndarray],
+    threshold: float = 0.5,
+) -> Dict[str, str]:
+    """Map anonymous ``SPEAKER_NN`` labels to enrolled identities: greedy
+    best match by cosine similarity between the per-file voiceprints of
+    :meth:`SpeakerDiarizer.diarize_with_embedding` and reference
+    embeddings of the same embedder. A label whose best similarity is
+    under ``threshold`` stays anonymous; each identity is used once."""
+    pairs = []
+    for label, v in voiceprints.items():
+        v = v / max(float(np.linalg.norm(v)), 1e-8)
+        for name, r in references.items():
+            r = r / max(float(np.linalg.norm(r)), 1e-8)
+            pairs.append((float(np.dot(v, r)), label, name))
+    out: Dict[str, str] = {}
+    taken_names: set = set()
+    for sim, label, name in sorted(pairs, reverse=True):
+        if sim < threshold or label in out or name in taken_names:
+            continue
+        out[label] = name
+        taken_names.add(name)
+    return out
 _BLOCK = 16  # samples per gather block
 
 
-class SpeakerDiarizer:
+class SpeakerDiarizer(DiarizerProtocol):
     """Embedding + clustering diarizer with graceful NoOp degradation."""
+
+    supports_buffers = True  # reads audio_io.AudioBuffer hand-offs
 
     def __init__(
         self,
@@ -50,8 +86,12 @@ class SpeakerDiarizer:
         embedding_batch_size: int = 32,
         lazy_load: bool = True,
         device=None,
+        model_name: str = "pyannote/speaker-diarization-3.1",
+        segmentation_batch_size: int = 32,
     ):
+        self.model_name = model_name
         self.weights_path = weights_path
+        self.segmentation_batch_size = segmentation_batch_size
         self.embedding_batch_size = embedding_batch_size
         self.device = resolve_device(device)
         self._embedder = None
@@ -72,7 +112,15 @@ class SpeakerDiarizer:
             embedding_batch_size=d.embedding_batch_size,
             lazy_load=config.lazy_load_models,
             device=device,
+            model_name=d.model,
+            segmentation_batch_size=d.segmentation_batch_size,
         )
+
+    def is_loaded(self) -> bool:
+        return self._embedder is not None
+
+    def unload_model(self) -> None:
+        self._embedder = None
 
     def load_model(self) -> None:
         if self._embedder is not None or self._use_noop:
@@ -325,7 +373,10 @@ class SpeakerDiarizer:
         if not spans:
             return [], {}
         embeddings = self._embed_device(dev_audio, spans, sr)
+        labels = self._cluster(embeddings, min_speakers, max_speakers)
+        return self._turns_from_labels(spans, labels, sr), self._voiceprints(embeddings, labels)
 
+    def _cluster(self, embeddings: np.ndarray, min_speakers: int, max_speakers: int):
         from .models.diarization.clustering import cluster_embeddings
 
         kw = {}
@@ -333,6 +384,121 @@ class SpeakerDiarizer:
             kw["threshold"] = self.ahc_threshold
         if self.single_cutoff is not None:
             kw["single_cutoff"] = self.single_cutoff
-        labels = cluster_embeddings(
+        return cluster_embeddings(
             embeddings, min_speakers=min_speakers, max_speakers=max_speakers, **kw)
-        return self._turns_from_labels(spans, labels, sr), self._voiceprints(embeddings, labels)
+
+    # -- host path (a host buffer or a file) -------------------------------------
+
+    def _speech_regions(self, audio: np.ndarray, sr: int) -> List[tuple]:
+        """Segmentation-model regions of the host audio when loaded (and
+        non-empty), else the energy classifier's."""
+        if self._segmentation is not None:
+            x = torch.from_numpy(np.ascontiguousarray(audio, np.float32)).to(self.device)
+            regions = self._segmentation_regions(x, sr)
+            if regions:
+                return regions
+        from .ops.vad_ops import frame_speech_flags, hangover_segments
+
+        frame_ms = 30
+        flags = frame_speech_flags(audio, sr, frame_ms, 1, device=self.device)
+        segs = hangover_segments(flags, frame_ms, 300, 0.5, 0.9)
+        spf = sr * frame_ms // 1000
+        if not segs:
+            return [(0, len(audio))]
+        return [(s * spf, min(len(audio), (e + 1) * spf)) for s, e, _ in segs]
+
+    def _subsegments(self, audio: np.ndarray, sr: int) -> List[tuple]:
+        return self._subsegments_from_regions(self._speech_regions(audio, sr), sr)
+
+    def _embed_all(self, audio: np.ndarray, sr: int, spans: List[tuple]) -> np.ndarray:
+        """Embeddings of host subsegments: the ``StatsEmbedder``'s span
+        statistics over one MFCC pass of the file, or the ``ConvEmbedder``
+        over power-of-two batches (at least ``embedding_batch_size``, at
+        most 1024) of the subsegments cut on the host."""
+        from .models.diarization.embedding import StatsEmbedder
+
+        if isinstance(self._embedder, StatsEmbedder):
+            frames = self._embedder.frame_features(audio, sr)
+            if frames.shape[0] > 1:
+                return self._embedder.embed_spans(frames, np.asarray(spans, dtype=np.int64), sr)
+
+        win = int(_SUBSEG_S * sr)
+        max_batch = 1024
+        out = []
+        for i in range(0, len(spans), max_batch):
+            chunk = spans[i : i + max_batch]
+            n = len(chunk)
+            bucket = min(max_batch, max(self.embedding_batch_size, 1 << (n - 1).bit_length()))
+            batch = np.zeros((bucket, win), dtype=np.float32)
+            for j, (s, e) in enumerate(chunk):
+                seg = audio[s:e]
+                batch[j, : len(seg)] = seg[:win]
+            out.append(self._embedder.embed(torch.from_numpy(batch).to(self.device))[:n])
+        return np.concatenate(out, axis=0)
+
+    # -- protocol -------------------------------------------------------------------
+
+    @retry_with_backoff(
+        config=RetryConfig(max_attempts=2, initial_delay_s=2.0),
+        exceptions=(RuntimeError,),
+    )
+    def diarize(self, audio_path: str, min_speakers: int = 2, max_speakers: int = 5
+                ) -> List[DiarizationSegment]:
+        segments, _ = self._diarize_full(audio_path, min_speakers, max_speakers)
+        return segments
+
+    def _diarize_full(self, audio_path: str, min_speakers: int = 2, max_speakers: int = 5):
+        """``(segments, {speaker: mean unit-norm embedding})``."""
+        self.load_model()
+        if self._use_noop:
+            return NoOpDiarizer().diarize(audio_path, min_speakers, max_speakers), {}
+        try:
+            buf = get_buffer(audio_path)
+            if buf is not None and buf.tensor is not None:
+                segments, voiceprints = self.diarize_device_timeline(
+                    buf.tensor, buf.n_valid, buf.sr,
+                    min_speakers=min_speakers, max_speakers=max_speakers)
+            else:
+                audio, sr = (buf.as_host(), buf.sr) if buf else read_wav(audio_path)
+                spans = self._subsegments(audio, sr)
+                if not spans:
+                    return [], {}
+                embeddings = self._embed_all(audio, sr, spans)
+                labels = self._cluster(embeddings, min_speakers, max_speakers)
+                segments = self._turns_from_labels(spans, labels, sr)
+                voiceprints = self._voiceprints(embeddings, labels)
+            logger.info("Diarization: %d turns, %d speakers",
+                        len(segments), len(set(s.speaker for s in segments)))
+            return segments, voiceprints
+        except RuntimeError:
+            raise
+        except Exception as exc:
+            raise DiarizationError(f"Diarization failed for: {audio_path}", details=str(exc))
+
+
+    def diarize_with_embedding(self, audio_path: str, min_speakers: int = 1,
+                               max_speakers: int = 5) -> tuple:
+        """``(segments, {speaker: unit-norm mean embedding})``: the turns and
+        the voiceprints :func:`identify_speakers` matches across files."""
+        return self._diarize_full(audio_path, min_speakers, max_speakers)
+
+
+class NoOpDiarizer(DiarizerProtocol):
+    """Whole file attributed to SPEAKER_00."""
+
+    def is_loaded(self) -> bool:
+        return True
+
+    def load_model(self) -> None:
+        pass
+
+    def unload_model(self) -> None:
+        pass
+
+    def diarize(self, audio_path: str, min_speakers: int = 2, max_speakers: int = 5
+                ) -> List[DiarizationSegment]:
+        try:
+            duration = get_audio_duration(audio_path)
+        except Exception:
+            duration = 0.0
+        return [DiarizationSegment(speaker="SPEAKER_00", start=0.0, end=duration, track="0")]

@@ -1,7 +1,10 @@
 """Typed failures raised by the PyTorch port.
 
-The subset of ``modular_audio_pipeline_tpu/exceptions.py`` that the port
-raises, copied so the port never imports the JAX package. Same class names, stages and ``str()`` wire format.
+Copied from ``modular_audio_pipeline_tpu/exceptions.py`` so the port never
+imports the JAX package: one class per pipeline stage with the same names,
+``stage``/``retryable`` metadata, ``str()`` wire format and ``to_dict()``
+form for batch ledgers. (The JAX package's ``FetchIntegrityError`` belongs
+to its integrity layer, ROADMAP.md §A item 10.)
 """
 
 from __future__ import annotations
@@ -9,8 +12,10 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 __all__ = [
-    "AudioPipelineError", "AudioProcessingError", "TranscriptionError",
-    "ModelLoadError", "VocalSeparationError",
+    "AudioPipelineError", "MediaNotFoundError", "MediaConversionError",
+    "AudioProcessingError", "VocalSeparationError", "TranscriptionError",
+    "DiarizationError", "VADError", "ConfigurationError", "ModelLoadError",
+    "FileValidationError", "ShardingError",
 ]
 
 
@@ -18,7 +23,8 @@ class AudioPipelineError(Exception):
     """Base class for every pipeline failure.
 
     Carries a short human message plus optional diagnostic ``details``
-    appended on its own line by ``str()``.
+    (stderr tails, shape dumps, ...) appended on its own line by
+    ``str()``.
     """
 
     stage: str = "pipeline"
@@ -43,15 +49,20 @@ class AudioPipelineError(Exception):
         }
 
 
+class MediaNotFoundError(AudioPipelineError):
+    """Discovery found no usable media file."""
+    stage = "discovery"
+
+
+class MediaConversionError(AudioPipelineError):
+    """Decoding or conversion of the input media failed."""
+    stage = "convert"
+    retryable = True  # subprocess/IO hiccups
+
+
 class AudioProcessingError(AudioPipelineError):
-    """Reading, writing or resampling audio failed."""
+    """A DSP preprocessing stage (denoise / normalize / silence) failed."""
     stage = "preprocess"
-
-
-class TranscriptionError(AudioPipelineError):
-    """Speech-to-text failed."""
-    stage = "transcribe"
-    retryable = True
 
 
 class VocalSeparationError(AudioPipelineError):
@@ -60,6 +71,38 @@ class VocalSeparationError(AudioPipelineError):
     retryable = True
 
 
+class TranscriptionError(AudioPipelineError):
+    """Speech-to-text failed."""
+    stage = "transcribe"
+    retryable = True
+
+
+class DiarizationError(AudioPipelineError):
+    """Speaker diarization failed."""
+    stage = "diarize"
+    retryable = True
+
+
+class VADError(AudioPipelineError):
+    """Voice-activity detection failed."""
+    stage = "vad"
+
+
+class ConfigurationError(AudioPipelineError):
+    """The pipeline configuration is invalid (never retryable)."""
+    stage = "config"
+
+
 class ModelLoadError(AudioPipelineError):
-    """Model weights or tokenizer could not be loaded."""
+    """Model weights / tokenizer / compiled program could not be loaded."""
     stage = "model-load"
+
+
+class FileValidationError(AudioPipelineError):
+    """A file failed existence / extension / size validation."""
+    stage = "validate"
+
+
+class ShardingError(AudioPipelineError):
+    """Mesh construction or sharding specification failed."""
+    stage = "sharding"

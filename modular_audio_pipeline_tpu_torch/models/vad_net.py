@@ -120,6 +120,17 @@ class ConvVAD(nn.Module):
         logits = self.head(x[0].T)  # [T, 1]
         return torch.sigmoid(logits[:, 0])
 
+    def speech_probs(self, audio: np.ndarray, sr: int) -> np.ndarray:
+        """Host audio -> host probabilities, one per 512-sample window."""
+        if sr != 16000:
+            from ..audio_io import resample_poly
+
+            audio = resample_poly(audio, sr, 16000)
+        if len(audio) < WINDOW_SAMPLES:
+            return np.zeros(0, dtype=np.float32)
+        x = torch.from_numpy(np.ascontiguousarray(audio, np.float32)).to(self.head.weight.device)
+        return self(self.features(x)).cpu().numpy()
+
 
 class SileroVAD(nn.Module):
     """The public Silero VAD v5 graph (16 kHz branch), from a converted

@@ -17,7 +17,7 @@ import torch
 
 from .framing import frame_signal
 
-__all__ = ["frame_features", "noise_segments_from_features"]
+__all__ = ["frame_features", "noise_segments_from_features", "longest_noise_run"]
 
 
 def frame_features(audio: torch.Tensor, sr: int) -> torch.Tensor:
@@ -56,3 +56,13 @@ def noise_segments_from_features(
         for s, e in zip(starts[:n_pairs], ends)
         if (e - s) * hop / sr >= 0.1
     ]
+
+
+def longest_noise_run(x: torch.Tensor, n_valid: int, sr: int):
+    """``(start, end)`` samples of the longest noise run of a padded device
+    waveform, from the features of its valid frames; None when none."""
+    frame_len, hop = int(sr * 0.025), int(sr * 0.010)
+    nvf = max(0, (n_valid - frame_len) // hop + 1)
+    ez = frame_features(x, sr).cpu().numpy()
+    segs = noise_segments_from_features(ez[0, :nvf], ez[1, :nvf], sr)
+    return max(segs, key=lambda s: s[1] - s[0]) if segs else None

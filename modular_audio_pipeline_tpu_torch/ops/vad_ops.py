@@ -23,7 +23,7 @@ import torch
 
 from .framing import frame_signal
 
-__all__ = ["band_energies", "flags_from_band_stats", "hangover_segments"]
+__all__ = ["band_energies", "flags_from_band_stats", "frame_speech_flags", "hangover_segments"]
 
 # WebRTC's six analysis sub-bands (Hz).
 _BAND_EDGES = (80.0, 250.0, 500.0, 1000.0, 2000.0, 3000.0, 4000.0)
@@ -50,6 +50,28 @@ def band_energies(audio: torch.Tensor, sr: int, frame_ms: int = 30
         bands.append(spec[:, int(sel[0]) : int(sel[-1]) + 1].sum(dim=-1))
     frame_db = 10.0 * torch.log10(torch.mean(frames * frames, dim=-1) + 1e-12)
     return torch.stack(bands, dim=-1), frame_db
+
+
+def frame_speech_flags(audio: np.ndarray, sr: int, frame_ms: int = 30, mode: int = 1,
+                       device=None) -> np.ndarray:
+    """Per-frame speech decisions (int32 0/1) over the valid frames of a
+    host waveform: the band statistics of its bucket-padded copy on
+    ``device`` (None: CUDA), the noise floor and thresholds on the host
+    over the valid frames only."""
+    from ..utils import resolve_device
+    from .bucketing import pad_to_bucket
+
+    audio = np.asarray(audio, dtype=np.float32)
+    frame_len = sr * frame_ms // 1000
+    n_valid_frames = len(audio) // frame_len
+    if n_valid_frames == 0:
+        return np.zeros(0, dtype=np.int32)
+    padded, _ = pad_to_bucket(audio, sr)
+    x = torch.from_numpy(np.ascontiguousarray(padded)).to(resolve_device(device))
+    bands_d, db_d = band_energies(x, sr, frame_ms)
+    bands = bands_d.cpu().numpy()[:n_valid_frames]
+    frame_db = db_d.cpu().numpy()[:n_valid_frames]
+    return flags_from_band_stats(bands, frame_db, mode)
 
 
 def flags_from_band_stats(

@@ -4,10 +4,11 @@ Counterpart of ``modular_audio_pipeline_tpu/separator.py``, with its
 semantics: the ``separation-<model>`` bundle's :class:`MaskUNet` when it
 loads and passes a shape probe, REPET (weight-free) otherwise; the
 energy-CV music auto-detection; 5-minute chunks with partial exports and a
-final checkpoint. :class:`VocalSeparator` reads its input file (the JAX
-package's device-buffer hand-off between stages belongs to the
-stage-by-stage pipeline, ROADMAP.md §A.7). Runs on CUDA unless
-``device="cpu"``.
+final checkpoint. Inside ``AudioPipeline`` :class:`VocalSeparator` reads
+the previous stage's published buffer: the music test reduces a device
+tensor to one scalar on the device (``ops.music.analyze_device``), and
+only a separation that runs copies the waveform to the host. Runs on CUDA
+unless ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Optional
 
 import numpy as np
 
-from .audio_io import read_wav, write_wav
+from .audio_io import get_buffer, read_stage_input, write_wav
 from .exceptions import VocalSeparationError
 from .utils import CheckpointManager, resolve_device
 
@@ -78,6 +79,8 @@ def get_device_separation(model: str, device=None):
 class VocalSeparator:
     """File-to-file vocal isolation with chunking and checkpoint/resume."""
 
+    supports_buffers = True  # reads audio_io.AudioBuffer hand-offs
+
     def __init__(
         self,
         sample_rate: int,
@@ -86,24 +89,43 @@ class VocalSeparator:
         chunk_minutes: float = 5.0,
         checkpoint_manager: Optional[CheckpointManager] = None,
         device=None,
+        timeout_s: int = 600,
     ):
         self.sample_rate = sample_rate
         self.temp_dir = temp_dir
         self.model = model
         self.chunk_minutes = chunk_minutes
+        self.timeout_s = timeout_s  # carried for config parity
         self.checkpoint_manager = checkpoint_manager
         self.device = resolve_device(device)
         self._backend_fn = None
         os.makedirs(temp_dir, exist_ok=True)
 
+    @classmethod
+    def from_config(cls, config, checkpoint_manager: Optional[CheckpointManager] = None,
+                    device=None) -> "VocalSeparator":
+        return cls(
+            sample_rate=config.audio.sample_rate,
+            temp_dir=config.temp_dir,
+            model=config.vocal_separation.model,
+            chunk_minutes=config.vocal_separation.chunk_minutes,
+            checkpoint_manager=checkpoint_manager,
+            device=device,
+            timeout_s=config.subprocess_timeout_s,
+        )
+
     # -- detection -----------------------------------------------------------
 
     def _analyze_audio_content(self, input_wav: str) -> dict:
-        from .ops.music import analyze_audio_content
+        from .ops.music import analyze_audio_content, analyze_device
 
         try:
-            audio, sr = read_wav(input_wav)
-            result = analyze_audio_content(audio, sr, self.device)
+            buf = get_buffer(input_wav)
+            if buf is not None and buf.tensor is not None:
+                result = analyze_device(buf.tensor, buf.n_valid, buf.sr)
+            else:
+                audio, sr = read_stage_input(input_wav)
+                result = analyze_audio_content(audio, sr, self.device)
             logger.info("Audio analysis: %s", result)
             return result
         except Exception as exc:
@@ -139,7 +161,7 @@ class VocalSeparator:
                 logger.info("Using cached vocals from checkpoint: %s", ckpt.output_file)
                 return ckpt.output_file
 
-        audio, sr = read_wav(input_wav)
+        audio, sr = read_stage_input(input_wav)
         chunk_samples = int(self.chunk_minutes * 60 * sr)
         n_chunks = max(1, int(np.ceil(len(audio) / chunk_samples)))
         stem = Path(input_wav).stem

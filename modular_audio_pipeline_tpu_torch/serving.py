@@ -200,11 +200,12 @@ class ServingPipeline:
                  mesh=None):
         from .config import PipelineConfig
         from .transcriber import TorchWhisperBackend
-        from .utils import resolve_device
+        from .utils import refuse_mesh, resolve_device
 
         self.config = config or PipelineConfig()
-        if mesh is not None or getattr(getattr(self.config, "tpu", None), "mesh_shape", None):
-            raise not_ported("A device mesh (multi-GPU serving)", "Batch + parallel")
+        if mesh is not None:
+            raise not_ported("A device mesh (multi-GPU serving)", "Multi-GPU")
+        refuse_mesh(self.config)
         self.device = resolve_device(device)
         if backend is not None:
             if backend.device != self.device:
@@ -274,7 +275,7 @@ class ServingPipeline:
         )
         from .ops.bucketing import pad_to_bucket
         from .ops.mel import log_mel
-        from .ops.noise_detect import frame_features, noise_segments_from_features
+        from .ops.noise_detect import longest_noise_run
         from .transcriber import _BATCH_BUCKETS
 
         cfg = self.config
@@ -323,13 +324,9 @@ class ServingPipeline:
         noise_start = 0
         denoise = cfg.noise_reduction.enabled
         if denoise and cfg.noise_reduction.auto_detect_noise:
-            frame_len, hop = int(sr * 0.025), int(sr * 0.010)
-            nvf = max(0, (n_valid - frame_len) // hop + 1)
-            ez = frame_features(dev_f32, sr).cpu().numpy()
-            segs = noise_segments_from_features(ez[0, :nvf], ez[1, :nvf], sr)
-            if segs:
-                longest = max(segs, key=lambda s: s[1] - s[0])
-                noise_start = min(longest[0], max(0, n_valid - 2 * sr))
+            run = longest_noise_run(dev_f32, n_valid, sr)
+            if run is not None:
+                noise_start = min(run[0], max(0, n_valid - 2 * sr))
         del dev_f32
 
         self._resolve_vad()

@@ -2,9 +2,9 @@
 
 Counterpart of ``modular_audio_pipeline_tpu/transcriber.py`` for the
 batched window path: ``TorchWhisperBackend`` (the counterpart of
-``JaxWhisperBackend``) and ``WhisperTranscriber`` with the same
-constructor, ``from_config``, lazy loading, retry on transient errors and
-result dict::
+``JaxWhisperBackend``), ``WhisperTranscriber`` and the default
+``FasterWhisperTranscriber`` (with its built-in VAD gate) with the same
+constructors, ``from_config``, lazy loading and result dict::
 
     {"text": str, "segments": [{"start","end","text","confidence"}, ...],
      "language": str, "duration": float}
@@ -16,7 +16,9 @@ are decoded again up a ladder of sampling temperatures; with
 ``word_timestamps`` each segment carries DTW-aligned ``words``;
 ``compute_type="int8"`` quantises the decoder's weights
 (``ops/quant.py``); ``language="auto"`` detects the language from the
-first window.
+first window. Inside ``AudioPipeline`` the transcribers read the previous
+stage's published buffer (``audio_io.get_buffer``) and cut a device
+tensor into windows where it lies.
 
 Runs on CUDA unless the caller passes ``device="cpu"``: ``device=None``
 means ``"cuda"`` and raises when no CUDA device is present. Options of the
@@ -36,7 +38,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from .audio_io import read_wav, resample_poly
+from .audio_io import get_buffer, read_stage_input, resample_poly
 from .config import RetryConfig
 from .exceptions import ModelLoadError, TranscriptionError
 from .models.whisper.config import MODEL_INFO, WHISPER_DIMS, WhisperDims
@@ -57,12 +59,23 @@ from .utils import SHIPPED_WEIGHTS, not_ported, resolve_device, retry_with_backo
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["WhisperTranscriber", "TorchWhisperBackend"]
+__all__ = ["WhisperTranscriber", "FasterWhisperTranscriber", "TorchWhisperBackend"]
 
 _WINDOW_S = 30.0
 _SR = 16000
 _BATCH_BUCKETS = (1, 2, 4, 8, 16)
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _configure(backend: "TorchWhisperBackend", tc) -> None:
+    """The decoding options of a ``transcription`` config section that the
+    transcribers' constructors do not take."""
+    backend.no_speech_threshold = tc.no_speech_threshold
+    backend.logprob_threshold = tc.logprob_threshold
+    backend.compression_ratio_threshold = tc.compression_ratio_threshold
+    backend.patience = tc.patience
+    backend.kv_cache_dtype = getattr(tc, "kv_cache_dtype", "int8")
+    backend.condition_on_previous_text = getattr(tc, "condition_on_previous_text", True)
 
 
 def _no_retry_unported(exc: Exception, attempt: int) -> None:
@@ -103,6 +116,7 @@ class TorchWhisperBackend:
         compression_ratio_threshold: Optional[float] = 2.4,
         patience: Optional[float] = None,
         kv_cache_dtype: str = "int8",
+        condition_on_previous_text: bool = True,
         device: Optional[str] = None,
     ):
         if model_name not in WHISPER_DIMS:
@@ -128,6 +142,7 @@ class TorchWhisperBackend:
         self.compression_ratio_threshold = compression_ratio_threshold
         self.patience = patience
         self.kv_cache_dtype = kv_cache_dtype
+        self.condition_on_previous_text = condition_on_previous_text  # the seek loop's
         self.fallback_temperatures = (0.2, 0.4, 0.6, 0.8, 1.0)
         self.params = None
         self.tokenizer: Optional[WhisperTokenizer] = None
@@ -247,19 +262,47 @@ class TorchWhisperBackend:
         if self.chunking != "batched":
             raise not_ported(f"chunking={self.chunking!r} (the seek loop)", "sequential chunking")
 
-    def transcribe_array(self, audio: np.ndarray, sr: int) -> Dict[str, Any]:
+    def transcribe_buffer(self, buf) -> Dict[str, Any]:
+        """Transcribe a published stage buffer (``audio_io.AudioBuffer``):
+        a padded tensor on the device is cut into its 30 s windows where it
+        lies; a host buffer, another sample rate or a length off the window
+        grid takes the host path."""
+        win = int(_WINDOW_S * _SR)
+        t = buf.tensor
+        if t is None or buf.sr != _SR or int(t.shape[-1]) % win:
+            return self.transcribe_array(buf.as_host(), buf.sr)
+        return self.transcribe_array(None, _SR, _dev=t, _n_valid=buf.n_valid)
+
+    def transcribe_array(self, audio: Optional[np.ndarray], sr: int, _dev=None, _n_valid=None
+                         ) -> Dict[str, Any]:
+        """``_dev``/``_n_valid``: a padded device waveform (zeros past
+        ``_n_valid``, a whole number of windows long) in place of ``audio``."""
         self.check_supported()
         self.load()
-        if sr != _SR:
-            audio = resample_poly(audio, sr, _SR)
-        duration = len(audio) / _SR
-        windows = self._windows(audio)
-        n_win = windows.shape[0]
+        win = int(_WINDOW_S * _SR)
+        if _dev is None:
+            if sr != _SR:
+                audio = resample_poly(audio, sr, _SR)
+            duration = len(audio) / _SR
+            windows = self._windows(audio)
+            n_win = windows.shape[0]
+        else:
+            duration = _n_valid / _SR
+            n_win = max(1, -(-_n_valid // win))
+            windows = _dev[: n_win * win].reshape(n_win, win).float()
+
+        def batch(start: int, b: int, bucket: int) -> torch.Tensor:
+            """Windows [start, start + b) zero-padded to ``bucket`` rows."""
+            if _dev is None:
+                padded = np.zeros((bucket, win), np.float32)
+                padded[:b] = windows[start : start + b]
+                return torch.from_numpy(padded).to(self.device)
+            rows = windows[start : start + b]
+            return torch.cat([rows, rows.new_zeros((bucket - b, win))]) if bucket > b else rows
 
         language = self.language
         if language in (None, "", "auto"):
-            first_mel = log_mel(torch.from_numpy(windows[:1]).to(self.device),
-                                n_mels=self.dims.n_mels)
+            first_mel = log_mel(batch(0, 1, 1), n_mels=self.dims.n_mels)
             language, _ = detect_language(self.params, self.dims, self.tokenizer, first_mel)
             logger.info("Detected language: %s", language)
         opts = self._decode_options(language)
@@ -271,9 +314,7 @@ class TorchWhisperBackend:
             b = min(self.batch_size, n_win - start)
             # bucket the batch so a bounded set of shapes runs
             bucket = next((c for c in _BATCH_BUCKETS if c >= b), b)
-            padded = np.zeros((bucket, windows.shape[1]), np.float32)
-            padded[:b] = windows[start : start + b]
-            mel = log_mel(torch.from_numpy(padded).to(self.device), n_mels=self.dims.n_mels)
+            mel = log_mel(batch(start, b, bucket), n_mels=self.dims.n_mels)
             # with word timestamps the audio K/V is encoded once and serves
             # both the decode and the alignment pass
             audio_kv = (encode_audio_kv(self.params, self.dims, mel)
@@ -535,13 +576,8 @@ class WhisperTranscriber:
             max_decode_tokens=tc.max_decode_tokens,
             device=device,
         )
-        backend = inst._backend
-        backend.no_speech_threshold = tc.no_speech_threshold
-        backend.logprob_threshold = tc.logprob_threshold
-        backend.compression_ratio_threshold = tc.compression_ratio_threshold
-        backend.patience = tc.patience
-        backend.kv_cache_dtype = getattr(tc, "kv_cache_dtype", "int8")
-        backend.compute_dtype = {"float16": "bfloat16"}.get(tc.compute_type, tc.compute_type)
+        _configure(inst._backend, tc)
+        inst._backend.compute_dtype = {"float16": "bfloat16"}.get(tc.compute_type, tc.compute_type)
         if not config.lazy_load_models:
             inst.load_model()
         return inst
@@ -565,8 +601,12 @@ class WhisperTranscriber:
     def transcribe(self, input_wav: str) -> Dict[str, Any]:
         logger.info("Transcribing: %s", input_wav)
         try:
-            audio, sr = read_wav(input_wav)
-            result = self._backend.transcribe_array(audio, sr)
+            buf = get_buffer(input_wav)
+            if buf is not None and buf.tensor is not None:
+                result = self._backend.transcribe_buffer(buf)
+            else:
+                audio, sr = read_stage_input(input_wav)
+                result = self._backend.transcribe_array(audio, sr)
         except RuntimeError:
             raise
         except Exception as exc:
@@ -578,3 +618,176 @@ class WhisperTranscriber:
             len(result["segments"]), len(result["text"]),
         )
         return result
+
+    def transcribe_with_options(self, input_wav: str, **kwargs) -> Dict[str, Any]:
+        """One call with backend options overridden (``language``, ``task``,
+        ``temperature``, ``beam_size``, ``initial_prompt``, ...); the
+        options are restored afterwards."""
+        saved = {}
+        backend = self._backend
+        for key, val in kwargs.items():
+            name = {"initial_prompt": "prompt"}.get(key, key)
+            if hasattr(backend, name):
+                saved[name] = getattr(backend, name)
+                setattr(backend, name, val)
+        try:
+            buf = get_buffer(input_wav)
+            if buf is not None and buf.tensor is not None:
+                return backend.transcribe_buffer(buf)
+            audio, sr = read_stage_input(input_wav)
+            return backend.transcribe_array(audio, sr)
+        except Exception as exc:
+            raise TranscriptionError("Transcription failed", details=str(exc))
+        finally:
+            for name, val in saved.items():
+                setattr(backend, name, val)
+
+
+class FasterWhisperTranscriber:
+    """The default transcriber (``transcription.backend="faster-whisper"``):
+    the same backend behind faster-whisper's facade, with its built-in VAD
+    gate. Speech-free stretches are zeroed (the timeline kept) by the
+    energy classifier and hangover machine before windowing, on the
+    device for a device buffer (:meth:`_gate_silence_device`), on the host
+    otherwise (:meth:`_gate_silence`).
+
+    Unlike the JAX package, a failed transcription is not retried on the
+    CPU: it raises :class:`~.exceptions.TranscriptionError` (ROADMAP.md
+    §C). ``device`` places the model (None: CUDA); the config's
+    ``transcription.device`` is not read.
+    """
+
+    supports_buffers = True  # reads audio_io.AudioBuffer hand-offs
+
+    def __init__(
+        self,
+        model_name: str = "large-v3",
+        device: Optional[str] = None,
+        compute_type: str = "bfloat16",
+        beam_size: int = 5,
+        language: str = "pt",
+        lazy_load: bool = True,
+        weights_path: Optional[str] = None,
+        batch_size: int = 16,
+        vad_filter: bool = True,
+        word_timestamps: bool = True,
+        chunking: str = "batched",
+        max_decode_tokens: int = 224,
+    ):
+        self.model_name = model_name
+        self.compute_type = compute_type
+        self.beam_size = beam_size
+        self.language = language
+        self.vad_filter = vad_filter
+        self._backend = TorchWhisperBackend(
+            model_name=model_name,
+            language=language,
+            beam_size=beam_size,
+            weights_path=weights_path,
+            compute_dtype={"float32": "float32", "int8": "int8"}.get(compute_type, "bfloat16"),
+            batch_size=batch_size,
+            word_timestamps=word_timestamps,
+            chunking=chunking,
+            max_decode_tokens=max_decode_tokens,
+            device=device,
+        )
+        self.device = self._backend.device
+        if not lazy_load:
+            self.load_model()
+
+    @classmethod
+    def from_config(cls, config, device: Optional[str] = None) -> "FasterWhisperTranscriber":
+        tc = config.transcription
+        inst = cls(
+            model_name=tc.model,
+            device=device,
+            compute_type={"float16": "bfloat16"}.get(tc.compute_type, tc.compute_type),
+            beam_size=tc.beam_size,
+            language=tc.language,
+            lazy_load=True,
+            weights_path=tc.weights_path,
+            batch_size=tc.batch_size,
+            word_timestamps=tc.word_timestamps,
+            chunking=tc.chunking,
+            max_decode_tokens=tc.max_decode_tokens,
+        )
+        _configure(inst._backend, tc)
+        if not config.lazy_load_models:
+            inst.load_model()
+        return inst
+
+    def is_loaded(self) -> bool:
+        return self._backend.params is not None
+
+    def load_model(self) -> None:
+        self._backend.load()
+
+    def unload_model(self) -> None:
+        if self.is_loaded():
+            self._backend.unload()
+            logger.info("FasterWhisper model unloaded")
+
+    def _gate_silence_device(self, dev: torch.Tensor, n_valid: int, sr: int) -> torch.Tensor:
+        """Zero the speech-free 30 ms frames of a padded device waveform:
+        band statistics to the host, the hangover machine there, the frame
+        mask applied on the device."""
+        from .ops.vad_ops import band_energies, flags_from_band_stats, hangover_segments
+
+        frame_ms = 30
+        frame_len = sr * frame_ms // 1000
+        nvf = n_valid // frame_len
+        if nvf == 0:
+            return dev
+        bands_d, db_d = band_energies(dev, sr, frame_ms)
+        flags = flags_from_band_stats(bands_d.cpu().numpy()[:nvf], db_d.cpu().numpy()[:nvf], 1)
+        segs = hangover_segments(flags, frame_ms, 300, 0.5, 0.9)
+        if not segs:
+            return dev
+        keep = np.zeros(int(dev.shape[-1]) // frame_len, dtype=np.float32)
+        for s, e, _ in segs:
+            keep[s : e + 1] = 1.0
+        keep_t = torch.from_numpy(keep).to(dev.device)
+        return (dev.reshape(-1, frame_len) * keep_t[:, None]).reshape(-1)
+
+    def _gate_silence(self, audio: np.ndarray, sr: int) -> np.ndarray:
+        """Zero the speech-free 30 ms frames of a host waveform."""
+        from .ops.vad_ops import frame_speech_flags, hangover_segments
+
+        frame_ms = 30
+        flags = frame_speech_flags(audio, sr, frame_ms, 1, device=self.device)
+        segs = hangover_segments(flags, frame_ms, 300, 0.5, 0.9)
+        if not segs:
+            return audio
+        keep = np.zeros(len(audio), dtype=bool)
+        spf = sr * frame_ms // 1000
+        for s, e, _ in segs:
+            keep[s * spf : (e + 1) * spf] = True
+        return np.where(keep, audio, 0.0).astype(np.float32)
+
+    def transcribe(self, input_wav: str) -> Dict[str, Any]:
+        try:
+            return self._transcribe_impl(input_wav)
+        except (ModelLoadError, NotImplementedError):
+            raise
+        except Exception as exc:
+            raise TranscriptionError(f"Transcription failed for: {input_wav}",
+                                     details=str(exc))
+
+    def _transcribe_impl(self, input_wav: str) -> Dict[str, Any]:
+        from .audio_io import AudioBuffer
+
+        logger.info("Transcribing (Optimized): %s", input_wav)
+        self.load_model()
+        buf = get_buffer(input_wav)
+        frame_len = _SR * 30 // 1000
+        if (buf is not None and buf.tensor is not None and buf.sr == _SR
+                and int(buf.tensor.shape[-1]) % frame_len == 0):
+            dev = buf.tensor
+            if self.vad_filter and buf.n_valid > buf.sr:
+                dev = self._gate_silence_device(dev, buf.n_valid, buf.sr)
+            return self._backend.transcribe_buffer(
+                AudioBuffer(sr=buf.sr, n_valid=buf.n_valid, tensor=dev))
+        audio, sr = read_stage_input(input_wav)
+        if self.vad_filter and len(audio) > sr:
+            audio = self._gate_silence(audio, sr)
+        return self._backend.transcribe_array(audio, sr)

@@ -1,4 +1,6 @@
-"""Host utilities of the PyTorch port (copied from the JAX package)."""
+"""Host utilities of the PyTorch port (copied from the JAX package):
+retry, file validation, checkpoint/resume, timestamps, weight search and
+the device rule of the entry points."""
 
 from __future__ import annotations
 
@@ -17,7 +19,9 @@ logger = logging.getLogger(__name__)
 T = TypeVar("T")
 
 __all__ = ["retry_with_backoff", "weights_search_roots", "find_weights_bundle", "not_ported",
-           "resolve_device", "CheckpointManager", "get_file_hash"]
+           "resolve_device", "refuse_mesh", "CheckpointManager", "get_file_hash",
+           "validate_file", "ensure_directory", "get_audio_duration", "format_timestamp",
+           "parse_timestamp"]
 
 
 def resolve_device(device=None):
@@ -40,6 +44,15 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to the PyTorch package yet (ROADMAP.md §A, '{item}')"
     )
+
+
+def refuse_mesh(config) -> None:
+    """Raise for a config whose ``tpu.mesh_shape`` asks for more than one
+    device on an axis: the port runs on one card (ROADMAP.md §A item 11).
+    The JAX package runs a mesh only when an axis exceeds 1, too."""
+    shape = getattr(getattr(config, "tpu", None), "mesh_shape", None) or {}
+    if any(int(size) > 1 for size in shape.values()):
+        raise not_ported(f"A device mesh (tpu.mesh_shape={dict(shape)})", "Multi-GPU")
 
 
 # The JAX package's shipped bundles, read by path (never imported).
@@ -117,6 +130,50 @@ def retry_with_backoff(
         return wrapper
 
     return decorator
+
+
+def validate_file(
+    file_path: str,
+    must_exist: bool = True,
+    allowed_extensions: Optional[List[str]] = None,
+    min_size_bytes: int = 0,
+    max_size_bytes: Optional[int] = None,
+) -> bool:
+    """Validate existence, readability, extension and size of a file.
+
+    Raises :class:`~.exceptions.FileValidationError` naming the first
+    violation, with the others in its details; returns True otherwise.
+    """
+    from .exceptions import FileValidationError
+
+    path = Path(file_path)
+    problems: List[str] = []
+
+    if must_exist:
+        if not path.exists():
+            problems.append(f"file does not exist: {file_path}")
+        elif not path.is_file():
+            problems.append(f"path is not a regular file: {file_path}")
+        elif not os.access(file_path, os.R_OK):
+            problems.append(f"file is not readable: {file_path}")
+
+    if allowed_extensions:
+        ext = path.suffix.lower()
+        if ext not in {e.lower() for e in allowed_extensions}:
+            problems.append(
+                f"extension {ext!r} not in allowed set {sorted(allowed_extensions)}"
+            )
+
+    if must_exist and path.is_file():
+        size = path.stat().st_size
+        if size < min_size_bytes:
+            problems.append(f"file is {size} B, below the {min_size_bytes} B minimum")
+        if max_size_bytes is not None and size > max_size_bytes:
+            problems.append(f"file is {size} B, above the {max_size_bytes} B maximum")
+
+    if problems:
+        raise FileValidationError(problems[0], details="; ".join(problems[1:]) or None)
+    return True
 
 
 def get_file_hash(file_path: str, algorithm: str = "md5") -> str:
@@ -205,3 +262,39 @@ class CheckpointManager:
         self._checkpoints = {}
         if self.checkpoint_file.exists():
             self.checkpoint_file.unlink()
+
+
+def ensure_directory(path: str) -> str:
+    """mkdir -p; returns the absolute path."""
+    abs_path = str(Path(path).resolve())
+    os.makedirs(abs_path, exist_ok=True)
+    return abs_path
+
+
+def get_audio_duration(file_path: str) -> float:
+    """Duration in seconds of a WAV file (header-only read)."""
+    import contextlib
+    import wave
+
+    with contextlib.closing(wave.open(file_path, "rb")) as wf:
+        return wf.getnframes() / float(wf.getframerate())
+
+
+def format_timestamp(seconds: float) -> str:
+    """Seconds -> ``HH:MM:SS.mmm``."""
+    hours = int(seconds // 3600)
+    minutes = int((seconds % 3600) // 60)
+    secs = seconds % 60
+    return f"{hours:02d}:{minutes:02d}:{secs:06.3f}"
+
+
+def parse_timestamp(timestamp: str) -> float:
+    """``HH:MM:SS.mmm`` / ``MM:SS`` / plain seconds -> float seconds."""
+    parts = timestamp.split(":")
+    if len(parts) == 3:
+        h, m, s = parts
+        return int(h) * 3600 + int(m) * 60 + float(s)
+    if len(parts) == 2:
+        m, s = parts
+        return int(m) * 60 + float(s)
+    return float(timestamp)

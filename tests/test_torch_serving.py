@@ -269,10 +269,13 @@ def test_sectioned_dsp_matches_the_whole_file(monkeypatch):
 
 
 def test_default_device_is_cuda(tmp_path):
-    """ServingPipeline, the diarizer, the separator, the separation backend,
-    the networks and the StatsEmbedder target CUDA when no device is given,
-    and raise on a machine without it; so do the weight-free REPET and music
-    test, whose results are host arrays."""
+    """ServingPipeline, AudioPipeline, the stages (preprocessor, VAD
+    filters, FasterWhisperTranscriber), the BatchDriver, the diarizer, the
+    separator, the separation backend, the networks and the StatsEmbedder
+    target CUDA when no device is given, and raise on a machine without it;
+    so do the weight-free REPET, music test and frame classifier, whose
+    results are host arrays. The CLI, which takes no device flag, exits 1
+    there."""
     from test_torch_silero import synthetic_state_dict
 
     from modular_audio_pipeline_tpu_torch.diarizer import SpeakerDiarizer
@@ -288,7 +291,16 @@ def test_default_device_is_cuda(tmp_path):
     from modular_audio_pipeline_tpu_torch.models.whisper.convert import load_params
     from modular_audio_pipeline_tpu_torch.ops.music import analyze_audio_content
     from modular_audio_pipeline_tpu_torch.separator import VocalSeparator, get_separation_backend
-    from modular_audio_pipeline_tpu_torch.vad import load_vad_model
+    from modular_audio_pipeline_tpu_torch.ops.vad_ops import frame_speech_flags
+    from modular_audio_pipeline_tpu_torch.parallel.batch import BatchDriver
+    from modular_audio_pipeline_tpu_torch.pipeline import AudioPipeline
+    from modular_audio_pipeline_tpu_torch.preprocessor import AudioPreprocessor
+    from modular_audio_pipeline_tpu_torch.transcriber import FasterWhisperTranscriber
+    from modular_audio_pipeline_tpu_torch.vad import SileroVADFilter, VADFilter, load_vad_model
+
+    media = tmp_path / "media"
+    media.mkdir()
+    cfg = configure(PipelineConfig(media_dir=str(media)))
 
     holders = [
         lambda: pt_serving.ServingPipeline(),
@@ -302,10 +314,17 @@ def test_default_device_is_cuda(tmp_path):
         lambda: StatsEmbedder(),
         lambda: VocalSeparator(SR, str(tmp_path / "sep")),
         lambda: get_separation_backend("htdemucs").__self__,  # the bundle's MaskUNet
+        lambda: AudioPipeline(cfg),
+        lambda: AudioPreprocessor(SR, str(tmp_path / "pre")),
+        lambda: VADFilter(),
+        lambda: SileroVADFilter(),
+        lambda: FasterWhisperTranscriber("test-tiny"),
+        lambda: BatchDriver(cfg),
     ]
     weight_free = [
         lambda: repet_separate(np.zeros(SR, np.float32), SR),
         lambda: analyze_audio_content(np.zeros(SR, np.float32), SR),
+        lambda: frame_speech_flags(np.zeros(SR, np.float32), SR),
     ]
     for build in holders + weight_free:
         if not torch.cuda.is_available():
@@ -321,6 +340,15 @@ def test_default_device_is_cuda(tmp_path):
                 assert tensors and all(t.device.type == "cuda" for t in tensors)
             else:
                 assert dev.device.type == "cuda"
+    if not torch.cuda.is_available():
+        from modular_audio_pipeline_tpu_torch import cli
+
+        wav = media / "rec.wav"
+        from modular_audio_pipeline_tpu_torch.audio_io import write_wav
+
+        write_wav(str(wav), np.zeros(SR, np.float32), SR)
+        assert cli.main(["--media-dir", str(media), "--model", "test-tiny",
+                         "--weights-dir", "random:0"]) == 1
 
 
 @pytest.mark.parametrize("option", ["mesh", "mesh_shape"])
