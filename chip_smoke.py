@@ -117,6 +117,29 @@ Phases (any failure exits non-zero and prints no result line):
    ``AudioPipeline`` with the kernels and with the plain versions: equal
    segments and JSON.
 
+9. The seek loop and the LM tier (on 60 s of phase 8's first voiced file):
+   ``WhisperTranscriber(chunking="sequential")`` at large-v3-turbo, random
+   weights, beam 5, 224 tokens, int8 KV cache, no-speech gate off; each
+   window's seconds, prefix length and highest decode position are
+   logged, and positions past 447 must be reached (the prompt is padded to
+   223 tokens after the first window); the flash and ancestry kernels must
+   launch (counts reset just before, read just after). A
+   ``StreamingSession`` over the same audio in 7 s chunks must give the
+   same segments. The proxy bundle's sentences sequentially, with the
+   kernels and with the plain versions: equal segments. The flash kernel
+   at the seek encoder's [1, 20, 1500, 64] and the ancestry kernel at one
+   window (BK 5, ctx 448, int8) against their plain versions, timed beside
+   their bounds and ``scaled_dot_product_attention``; a row past the
+   context must land on position 447 with a guard layer untouched. Then
+   ``LlamaLM`` at tinyllama-1.1b with random bf16 weights from a seeded
+   generator on the card: a 1,536-token prompt and 256 greedy tokens twice
+   (equal), the incremental logits within ``LM_TOL`` of the teacher-forced
+   forward, prefill and per-token times beside the weight bytes per token
+   over the memory rate, and test-small in f32 card against CPU. Last,
+   ``AudioPipeline`` at phase 8's configuration with ``llm.enabled`` (the
+   heuristic tier) and sequential chunking, then batched chunking, and
+   ``compare_transcriptions`` between the two JSONs.
+
 Float32 products run in full f32 (TF32 off for matmuls and cuDNN
 convolutions). The last lines are the card, the per-kernel JSON line and
 ``{"ok": true, "device": {...}}``.
@@ -1842,6 +1865,361 @@ def phase_batch_proxy(torch, tmp: Path) -> dict:
     return {"segments": len(kernel.segments), "stage_timings": kernel.metadata["stage_timings"]}
 
 
+# -- phase 9 -----------------------------------------------------------------
+
+SEEK_SECONDS = 60.0  # phase 8's first voiced file (seed 11), cut to 60 s
+SEEK_CHUNK_S = 7  # the streaming session's chunk
+LM_PROMPT, LM_NEW = 1536, 256
+LM_TOL = 0.1  # bf16 incremental vs teacher-forced logits: max |diff| over max |logit|. The
+#               two sum the same products in other orders (GEMV against GEMM), and a
+#               1-ulp difference of a bf16 activation (2^-8 relative) moves on through
+#               22 layers; 0.1 leaves room for that and fails a wrong cache or position
+LM_F32_TOL = 1e-4  # test-small in f32, card against CPU (TF32 off)
+SEEK_CONF_TOL = 1e-3  # a segment's mean token log-probability in bf16: the ancestry kernel
+#                       differs from its plain version by 1-2 bf16 ulp (ROADMAP.md §C);
+#                       the proxy's segments read 1.0e-4 apart on an H100 (PERF.md, PR 8)
+
+
+@contextlib.contextmanager
+def seek_probe(backend, windows: list):
+    """Per seek window: its seconds, the prefix length (the prefill's tokens)
+    and the highest decode position, from the backend's seek step and the
+    decode loop's decoder calls."""
+    from modular_audio_pipeline_tpu_torch.models.whisper import decode
+
+    real_step, real_fwd = backend.seek_decode_step, decode.decoder_forward
+
+    def fwd(params, dims, tokens, xa_k, xa_v, cache, *a, **kw):
+        w = windows[-1]
+        w.setdefault("prefix", int(tokens.shape[1]))
+        w["max_pos"] = max(w.get("max_pos", 0), cache.pos + int(tokens.shape[1]) - 1)
+        return real_fwd(params, dims, tokens, xa_k, xa_v, cache, *a, **kw)
+
+    def step(chunk, seek, opts, all_tokens):
+        import torch
+
+        windows.append({"seek_s": seek / SR})
+        t0 = time.perf_counter()
+        out = real_step(chunk, seek, opts, all_tokens)
+        torch.cuda.synchronize()
+        windows[-1].update(seconds=time.perf_counter() - t0, advance_s=out[1] / SR,
+                           segments=len(out[0]))
+        return out
+
+    backend.seek_decode_step, decode.decoder_forward = step, fwd
+    try:
+        yield
+    finally:
+        del backend.seek_decode_step
+        decode.decoder_forward = real_fwd
+
+
+def _seek_segments_ok(segments, seconds: float, label: str) -> None:
+    for s in segments:
+        if not (0.0 <= s["start"] <= s["end"] <= seconds + 1e-6 and np.isfinite(s["confidence"])
+                and isinstance(s["text"], str) and s["text"]):
+            raise AssertionError(f"{label}: malformed segment {s}")
+
+
+def phase_seek(torch, tmp: Path):
+    """Phase 9: the seek loop and a streaming session at full width, the
+    proxy sentences sequentially through kernels and plain versions, the
+    kernels at the seek shapes, the Llama LM at tinyllama-1.1b, and
+    AudioPipeline with the LLM tier and sequential chunking."""
+    from modular_audio_pipeline_tpu_torch.audio_io import read_wav_raw_int16, write_wav
+    from modular_audio_pipeline_tpu_torch.streaming import StreamingSession
+    from modular_audio_pipeline_tpu_torch.transcriber import WhisperTranscriber
+
+    audio = voiced_speech(SEEK_SECONDS, seed=11)
+    wav = tmp / "seek.wav"
+    write_wav(str(wav), audio, SR)
+    tr = WhisperTranscriber("large-v3-turbo", language="en", weights_path="random:0",
+                            beam_size=5, max_decode_tokens=224, word_timestamps=False,
+                            chunking="sequential", device="cuda", lazy_load=False)
+    b = tr._backend
+    b.no_speech_threshold = None  # random weights: every window is parsed
+
+    # 1. the seek loop through WhisperTranscriber
+    windows: list = []
+    wrappers = _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with seek_probe(b, windows):
+        offline = tr.transcribe(str(wav))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    max_pos = max(w["max_pos"] for w in windows)
+    for i, w in enumerate(windows):
+        log(f"seek window {i}: at {w['seek_s']:.2f} s, {w['seconds']:.3f} s, prefix "
+            f"{w['prefix']}, last position {w['max_pos']}, advance {w['advance_s']:.2f} s, "
+            f"{w['segments']} segments")
+    log(f"seek: {len(windows)} windows, {len(offline['segments'])} segments in {wall:.2f} s "
+        f"({SEEK_SECONDS / wall:.1f}x realtime), positions past 447 reached "
+        f"{max_pos > 447} (highest {max_pos}), launches {launches}")
+    if max_pos <= 447:
+        raise AssertionError(f"seek: no window decoded past position 447 (highest {max_pos})")
+    if not offline["segments"] or len(windows) < 2:
+        raise AssertionError(f"seek: {len(windows)} windows, {len(offline['segments'])} segments")
+    _seek_segments_ok(offline["segments"], SEEK_SECONDS, "seek")
+    if launches["flash_attention"] <= 0 or launches["ancestor_attention"] <= 0:
+        raise AssertionError(f"seek: the seek path skipped a kernel: {launches}")
+
+    # 2. a streaming session over the same audio in 7 s chunks, fed the
+    # int16 PCM the file holds, as a capture delivers it
+    pcm, _ = read_wav_raw_int16(str(wav))
+    t0 = time.perf_counter()
+    session = StreamingSession(b)
+    emitted = []
+    n = SEEK_CHUNK_S * SR
+    for start in range(0, len(pcm), n):
+        emitted.extend(session.feed(pcm[start : start + n], SR))
+    streamed = session.finish()
+    stream_s = time.perf_counter() - t0
+    same = streamed["segments"] == offline["segments"]
+    log(f"streaming: {len(streamed['segments'])} segments ({len(emitted)} before finish) in "
+        f"{stream_s:.2f} s, equal to the offline run {same}")
+    if not same or streamed["text"] != offline["text"]:
+        raise AssertionError("streaming: the session's segments differ from the offline seek loop")
+    if emitted != streamed["segments"][: len(emitted)]:
+        raise AssertionError("streaming: a segment emitted mid-stream was revised")
+    del tr, b, session
+    torch.cuda.empty_cache()
+
+    # 3. the proxy bundle's sentences sequentially, kernels against plain versions
+    proxy_audio = proxy_file(np.random.default_rng(500_000))
+    proxy_wav = tmp / "proxy_seek.wav"
+    write_wav(str(proxy_wav), proxy_audio, SR)
+    ptr = WhisperTranscriber("tiny", language="en", beam_size=5, weights_path=str(PROXY),
+                             max_decode_tokens=128, word_timestamps=False,
+                             chunking="sequential", device="cuda")
+    kernel = ptr.transcribe(str(proxy_wav))["segments"]
+    with plain_kernels():
+        plain = ptr.transcribe(str(proxy_wav))["segments"]
+    key = lambda segs: [(s["text"], s["start"], s["end"]) for s in segs]  # noqa: E731
+    conf = max((abs(a["confidence"] - b["confidence"]) for a, b in zip(kernel, plain)),
+               default=0.0)
+    log(f"seek proxy: {len(kernel)} segments '{' '.join(s['text'] for s in kernel)[:80]}', "
+        f"kernels vs plain: text and times equal {key(kernel) == key(plain)}, confidence "
+        f"max diff {conf:.2e} (tol {SEEK_CONF_TOL})")
+    if not kernel or key(kernel) != key(plain) or conf > SEEK_CONF_TOL:
+        raise AssertionError(f"seek proxy: kernels {kernel} against plain {plain}")
+    del ptr
+
+    # 4. the two kernels at the seek shapes
+    flash_seek = flash_at(torch, (1, 20, 1500, 64))
+    anc_seek = ancestry_at_seek(torch)
+    n_win = len(windows)
+    flash_seek["launches_per_window"] = launches["flash_attention"] / n_win
+    anc_seek["launches_per_window"] = launches["ancestor_attention"] / n_win
+
+    # 5. the Llama LM at tinyllama-1.1b
+    lm = phase_lm(torch)
+
+    # 6. AudioPipeline with the LLM tier and sequential chunking
+    pipeline = seek_pipeline(torch, tmp, audio)
+    return launches, {
+        "audio_s": SEEK_SECONDS, "windows": windows, "wall_s": wall,
+        "realtime_x": SEEK_SECONDS / wall, "segments": len(offline["segments"]),
+        "max_position": max_pos, "streaming_s": stream_s, "streaming_equal": same,
+        "proxy_segments": len(kernel), "flash_seek": flash_seek, "ancestry_seek": anc_seek,
+        "lm": lm, "pipeline": pipeline,
+    }
+
+
+def ancestry_at_seek(torch) -> dict:
+    """The ancestry kernel at the seek loop's decode step (1 window x 5
+    beams, 20 heads, ctx 448, int8, shared ancestry): against its plain
+    version with time and bound (``_anc_case``), beside
+    ``scaled_dot_product_attention`` over K/V rows gathered and dequantised
+    beforehand (a yardstick: no library call reads rows by ancestry). Then
+    a position past the context, as the seek loop's last steps give it: the
+    row must land on position 447 of the last layer, as the plain version
+    writes it, and a guard layer past the cache must stay as it was."""
+    import torch.nn.functional as F
+
+    from modular_audio_pipeline_tpu_torch.ops.ancestor_attention import (
+        ancestor_attention,
+        ancestor_attention_reference,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    numbers, (q, new, anc, mask, layer, pos), mine = _anc_case(
+        torch, g, True, 448, True, bw=1, n_layers=4, layer=2)
+    bk, h, _, hd = q.shape
+    rows = (anc.long() + 0).reshape(bk, -1)  # one window: the row index is the beam
+    idx = rows[:, None, :, None].expand(bk, h, rows.shape[1], hd)
+    k_sel = (torch.gather(mine[0][layer], 0, idx).float()
+             * torch.gather(mine[2][layer], 0, idx[..., 0])[..., None]).to(torch.bfloat16)
+    v_sel = (torch.gather(mine[1][layer], 0, idx).float()
+             * torch.gather(mine[3][layer], 0, idx[..., 0])[..., None]).to(torch.bfloat16)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k_sel, v_sel, scale=1.0), 50)
+
+    # past the context: a 4-layer cache inside a 5-layer buffer whose last
+    # layer is a guard; the row goes to layer 3 at position 447
+    q2, cache, new2, anc2, mask2, _, _ = _anc_inputs(torch, True, g, 448, True, bw=1,
+                                                     n_layers=5, layer=3)
+    guard = [c[4].clone() for c in cache]
+    mine2 = [c[:4] for c in cache]
+    plain2 = [c[:4].clone() for c in cache]
+    y = ancestor_attention(q2, *mine2, 3, anc2, mask2, *new2, 451)
+    y_ref = ancestor_attention_reference(q2, *plain2, 3, anc2, mask2, *new2, 451)
+    torch.cuda.synchronize()
+    err = (y.float() - y_ref.float()).abs().max().item()
+    rows_ok = all(torch.equal(a, b) for a, b in zip(mine2, plain2))
+    guard_ok = all(torch.equal(c[4], gd) for c, gd in zip(cache, guard))
+    at_447 = torch.equal(mine2[0][3, :, :, 447], new2[0][:, :, 0])
+    log(f"ancestry past the context (pos 451 of 448): max_abs_err {err:.3e}, cache equal to "
+        f"the plain version's {rows_ok}, row at 447 {at_447}, guard layer untouched {guard_ok}; "
+        f"sdpa on gathered rows {lib_ms:.4f} ms")
+    if not (err <= ANC_TOL and rows_ok and guard_ok and at_447):
+        raise AssertionError("ancestor_attention: a row past the context was not clamped to 447")
+    return {**numbers, "shape": "BW 1, K 5, H 20, ctx 448, hd 64, int8, shared ancestry",
+            "library_ms": None, "sdpa_on_gathered_rows_ms": lib_ms,
+            "past_context_max_abs_err": err}
+
+
+def lm_weight_bytes(params, cfg) -> int:
+    """Bytes of the weights one decode step reads: every block, the final
+    norm, the head, and one row of the token embedding."""
+    n = sum(t.numel() * t.element_size() for t in params["blocks"].values())
+    n += params["final_norm"].numel() * params["final_norm"].element_size()
+    n += params["lm_head"].numel() * params["lm_head"].element_size()
+    return n + cfg.d_model * params["tok_emb"].element_size()
+
+
+def phase_lm(torch) -> dict:
+    """LlamaLM at tinyllama-1.1b (22 layers, d 2048, 32/4 heads, ff 5632,
+    vocab 32000), bf16, random weights from a seeded generator on the card:
+    a 1,536-token seeded prompt and 256 greedy tokens twice (equal tokens),
+    the incremental logits against one teacher-forced forward over the same
+    tokens (``LM_TOL``), prefill and per-token times beside the weight bytes
+    per token over the card's memory rate; then test-small in f32, card
+    against CPU."""
+    from modular_audio_pipeline_tpu_torch.models.lm import LLAMA_CONFIGS, LlamaLM
+    from modular_audio_pipeline_tpu_torch.models.lm.llama import LMCache, forward, init_params
+
+    cfg = LLAMA_CONFIGS["tinyllama-1.1b"]
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, torch.bfloat16, "cuda")
+    lm = LlamaLM(cfg, params=params, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in [params["tok_emb"], params["final_norm"], params["lm_head"],
+                                       *params["blocks"].values()])
+    log(f"lm: tinyllama-1.1b, {n_params / 1e9:.3f} B parameters initialised on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompt = np.random.default_rng(21).integers(3, cfg.vocab_size, size=LM_PROMPT).astype(np.int32)
+    ctx = min(cfg.max_seq, LM_PROMPT + LM_NEW + 1)
+
+    def prefill():
+        cache = LMCache.zeros(cfg, 1, ctx, torch.bfloat16, "cuda")
+        return forward(params, cfg, torch.from_numpy(prompt).long().cuda()[None], cache)
+
+    prefill()
+    prefill_ms = time_ms(prefill, 3, warmup=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = lm.generate(prompt, max_new_tokens=LM_NEW, temperature=0.0)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    again = lm.generate(prompt, max_new_tokens=LM_NEW, temperature=0.0)
+    per_token_ms = (gen_s * 1e3 - prefill_ms) / (len(toks) - 1)
+    bound_ms = lm_weight_bytes(params, cfg) / PEAK_BYTES * 1e3
+
+    # the incremental logits against the teacher-forced forward
+    seq = torch.from_numpy(np.concatenate([prompt, toks[:-1]])).long().cuda()[None]
+    full, _ = forward(params, cfg, seq, LMCache.zeros(cfg, 1, ctx, torch.bfloat16, "cuda"))
+    teacher = full[0, LM_PROMPT - 1 :]
+    logits, cache = prefill()
+    steps = [logits[0, -1]]
+    for t in toks[:-1]:
+        logits, cache = forward(params, cfg, torch.tensor([[int(t)]], device="cuda"), cache)
+        steps.append(logits[0, -1])
+    inc = torch.stack(steps)
+    rel = ((inc - teacher).abs().max() / teacher.abs().max()).item()
+    argmax_same = (inc.argmax(-1) == teacher.argmax(-1)).float().mean().item()
+    greedy_same = bool((inc.argmax(-1).cpu().numpy() == toks).all())
+    del full, teacher, inc, cache, logits
+    log(f"lm: prefill {LM_PROMPT} tokens {prefill_ms:.2f} ms, {len(toks)} greedy tokens in "
+        f"{gen_s:.2f} s, {per_token_ms:.3f} ms per token against a bound of {bound_ms:.4f} ms "
+        f"(weight bytes per token over {PEAK_BYTES / 1e12:.2f} TB/s); two runs equal "
+        f"{np.array_equal(toks, again)}; incremental vs teacher-forced logits: max diff "
+        f"{rel:.4f} of the largest logit (tol {LM_TOL}), argmax equal at {argmax_same:.3f} of "
+        f"the positions, the incremental argmax is the generated token {greedy_same}")
+    if not (np.array_equal(toks, again) and len(toks) == LM_NEW and rel <= LM_TOL
+            and greedy_same):
+        raise AssertionError("lm: tinyllama-1.1b generation is not reproducible or drifts")
+    del lm, params
+    torch.cuda.empty_cache()
+
+    # test-small in f32: the card against the CPU
+    small = LLAMA_CONFIGS["test-small"]
+    cpu = init_params(small, torch.Generator().manual_seed(4), torch.float32, "cpu")
+    card_p = {k: ({n: t.cuda() for n, t in v.items()} if isinstance(v, dict) else v.cuda())
+              for k, v in cpu.items()}
+    toks_in = torch.arange(5, 37)[None]
+    want, _ = forward(cpu, small, toks_in, LMCache.zeros(small, 1, 64, torch.float32))
+    got, _ = forward(card_p, small, toks_in.cuda(), LMCache.zeros(small, 1, 64, torch.float32,
+                                                                 "cuda"))
+    err = (got.cpu() - want).abs().max().item()
+    p = np.arange(8, dtype=np.int32)
+    g_cpu = LlamaLM(small, params=cpu).generate(p, max_new_tokens=24, temperature=0.0)
+    g_card = LlamaLM(small, params=card_p, device="cuda").generate(p, max_new_tokens=24,
+                                                                   temperature=0.0)
+    log(f"lm test-small f32: card vs CPU logits max_abs_err {err:.3e} (tol {LM_F32_TOL}), "
+        f"greedy tokens equal {np.array_equal(g_cpu, g_card)}")
+    if not (err <= LM_F32_TOL and np.array_equal(g_cpu, g_card)):
+        raise AssertionError("lm: test-small differs between the card and the CPU")
+    return {"config": "tinyllama-1.1b", "parameters": n_params, "prompt": LM_PROMPT,
+            "new_tokens": len(toks), "prefill_ms": prefill_ms, "generate_s": gen_s,
+            "ms_per_token": per_token_ms, "bound_ms_per_token": bound_ms,
+            "incremental_vs_teacher_rel": rel, "argmax_equal_share": argmax_same,
+            "test_small_f32_max_abs_err": err}
+
+
+def seek_pipeline(torch, tmp: Path, audio: np.ndarray) -> dict:
+    """AudioPipeline at phase 8's configuration with chunking="sequential"
+    and llm.enabled (no OpenAI key, no local model: the heuristic tier),
+    then the same file with batched chunking; compare_transcriptions
+    between the two JSONs."""
+    import os
+    import shutil
+
+    from modular_audio_pipeline_tpu_torch.audio_io import write_wav
+    from modular_audio_pipeline_tpu_torch.evaluation import compare_transcriptions
+    from modular_audio_pipeline_tpu_torch.pipeline import AudioPipeline
+
+    media, results = tmp / "seek_media", tmp / "seek_results"
+    media.mkdir()
+    wav = media / "meeting.wav"
+    write_wav(str(wav), audio, SR)
+    os.environ.pop("OPENAI_API_KEY", None)
+    docs = {}
+    for chunking in ("sequential", "batched"):
+        cfg = batch_config(media, results)
+        cfg.transcription.chunking = chunking
+        cfg.llm.enabled = True
+        pipe = AudioPipeline(cfg, device="cuda")
+        info = pipe.llm_processor.get_backend_info()
+        out = pipe.run(str(wav))
+        if not out.success:
+            raise AssertionError(f"seek pipeline ({chunking}): {out.error}")
+        n = _check_output_json(out.output_file, f"seek pipeline {chunking}")
+        doc = json.loads(Path(out.output_file).read_text(encoding="utf-8"))
+        docs[chunking] = tmp / f"seek_{chunking}.json"
+        shutil.copy(out.output_file, docs[chunking])
+        log(f"seek pipeline {chunking}: {n} segments, llm {info}, llm_analysis in the JSON "
+            f"{'llm_analysis' in doc}, stage timings {out.metadata['stage_timings']}")
+        if info["backend"] != "heuristic" or "llm_analysis" not in doc or not n:
+            raise AssertionError(f"seek pipeline ({chunking}): llm {info}, {n} segments")
+        del pipe
+        torch.cuda.empty_cache()
+    cmp = compare_transcriptions(str(docs["batched"]), str(docs["sequential"]))
+    log(f"seek pipeline: sequential against batched {json.dumps(cmp)}")
+    return {"compare_sequential_to_batched": cmp}
+
+
 def main() -> int:
     try:
         import torch
@@ -1905,6 +2283,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         batch["phase_s"] = time.perf_counter() - t0
         log(f"phase 8 done in {batch['phase_s']:.1f} s")
+        t0 = time.perf_counter()
+        launches_seek, seek = phase_seek(torch, Path(d))
+        torch.cuda.empty_cache()
+        seek["phase_s"] = time.perf_counter() - t0
+        log(f"phase 9 done in {seek['phase_s']:.1f} s")
     # each kernel's count from the main path that brings it: phase 6 (the
     # serving path) for the flash and ancestry kernels, phase 4b (the one
     # path with compute_type="int8") for the int8 product; each must also
@@ -1924,11 +2307,17 @@ def main() -> int:
         k["launches_audio_pipeline"] = launches_batch[name]
         if name == "flash_attention":
             k["large_v3_encoder_batch8"] = separation["flash_encoder_batch8"]
+            k["seek_encoder_batch1"] = seek["flash_seek"]
         if name == "ancestor_attention":
             k["large_v3_batch8"] = separation["ancestry_batch8"]
+            k["seek_bw1"] = seek["ancestry_seek"]
+        if name != "int8_matmul":
+            if launches_seek[name] <= 0:
+                raise AssertionError(f"{name} was not launched on the seek path")
+            k["launches_seek_path"] = launches_seek[name]
     log(json.dumps({"end_to_end": e2e, "end_to_end_int8": e2e_int8,
                     "launches_bf16_path": launches, "proxy": proxy, "serving": serving,
-                    "separation": separation, "batch": batch}))
+                    "separation": separation, "batch": batch, "seek": seek}))
 
     print(name_power)
     print(json.dumps({"kernels": kernels}))

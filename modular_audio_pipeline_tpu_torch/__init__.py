@@ -18,7 +18,11 @@ embedder, speaker alignment and the JSON output); the stage-by-stage
 and the timestamp mappings, its media handler with native FLAC/MP3
 decoders, the checkpointed ``BatchDriver`` and the CLI
 (``python -m modular_audio_pipeline_tpu_torch``, the flags of the
-repository's ``main.py``).
+repository's ``main.py``); whisper's seek loop (``chunking="sequential"``)
+and incremental ``StreamingSession``s over it; the LLM post-processing
+ladder with a local Llama LM on the card; and the WER/DER metrics
+(``python -m modular_audio_pipeline_tpu_torch.evaluation.metrics``). Every
+name of the JAX package's ``__all__`` resolves here.
 
 Example::
 
@@ -33,23 +37,38 @@ model code.
 
 import importlib
 
-__all__ = ["WhisperTranscriber", "FasterWhisperTranscriber", "TorchWhisperBackend",
-           "ServingPipeline", "AudioPipeline", "PipelineResult", "BatchDriver",
-           "TranscriptionConfig", "PipelineConfig", "ModelLoadError", "TranscriptionError"]
-
-_HOME = {
-    "ServingPipeline": ".serving",
-    "AudioPipeline": ".pipeline",
-    "PipelineResult": ".pipeline",
-    "BatchDriver": ".parallel.batch",
-    "FasterWhisperTranscriber": ".transcriber",
-    "WhisperTranscriber": ".transcriber",
-    "TorchWhisperBackend": ".transcriber",
-    "TranscriptionConfig": ".config",
-    "PipelineConfig": ".config",
-    "ModelLoadError": ".exceptions",
-    "TranscriptionError": ".exceptions",
+# every name of the JAX package's __all__, and the port's own entry points
+_EXPORTS = {
+    ".pipeline": ("AudioPipeline", "PipelineResult"),
+    ".config": ("PipelineConfig", "AudioConfig", "VADConfig", "NoiseReductionConfig",
+                "VocalSeparationConfig", "TranscriptionConfig", "DiarizationConfig",
+                "RedundancyConfig", "RetryConfig", "SegmentMergingConfig", "LLMConfig",
+                "TPUConfig", "DEFAULT_PROMPTS", "get_default_config"),
+    ".protocols": ("MediaHandlerProtocol", "PreprocessorProtocol", "VocalSeparatorProtocol",
+                   "VADProtocol", "TranscriberProtocol", "DiarizerProtocol",
+                   "RedundancyRemoverProtocol", "TranscriptionSegment", "DiarizationSegment",
+                   "TimestampMapping", "ProcessingResult", "AudioBuffer"),
+    ".exceptions": ("AudioPipelineError", "MediaNotFoundError", "MediaConversionError",
+                    "AudioProcessingError", "VocalSeparationError", "TranscriptionError",
+                    "DiarizationError", "VADError", "ConfigurationError", "ModelLoadError",
+                    "FileValidationError", "ShardingError"),
+    ".media_handler": ("MediaHandler",),
+    ".preprocessor": ("AudioPreprocessor",),
+    ".separator": ("VocalSeparator", "NoOpVocalSeparator"),
+    ".vad": ("VADFilter", "SileroVADFilter", "NoOpVADFilter"),
+    ".transcriber": ("WhisperTranscriber", "FasterWhisperTranscriber", "TorchWhisperBackend"),
+    ".streaming": ("StreamingSession",),
+    ".diarizer": ("SpeakerDiarizer", "NoOpDiarizer"),
+    ".redundancy": ("RedundancyRemover", "NoOpRedundancyRemover"),
+    ".segment_merger": ("SegmentMerger",),
+    ".utils": ("retry_with_backoff", "validate_file", "CheckpointManager", "get_file_hash",
+               "ensure_directory", "get_audio_duration", "format_timestamp",
+               "parse_timestamp"),
+    ".serving": ("ServingPipeline",),
+    ".parallel.batch": ("BatchDriver",),
 }
+_HOME = {name: module for module, names in _EXPORTS.items() for name in names}
+__all__ = list(_HOME)
 
 
 def __getattr__(name):

@@ -4,9 +4,8 @@
 repository's ``main.py`` (the JAX package's CLI) and returns its exit
 codes: 0 success, 1 error, 130 interrupted. The work runs on CUDA;
 :func:`main` takes ``device`` for callers that want the CPU (the tests).
-Unported options fail with exit code 1 and a ``NotImplementedError``
-naming their ROADMAP.md item: ``--devices``/``--tp`` above 1, an enabled
-``llm`` section, ``chunking="sequential"``.
+``--devices``/``--tp`` above 1 (multi-GPU is not ported) fail with exit
+code 1 and a ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations

@@ -121,7 +121,8 @@ class TranscriptionConfig:
     max_decode_tokens: int = 224  # decode-loop bound per 30 s window
     word_timestamps: bool = True  # cross-attention DTW word alignment
     # "batched": windows decode independently in parallel (throughput);
-    # "sequential": the seek loop, not ported yet (ROADMAP.md §A item 4).
+    # "sequential": whisper's seek loop, one window at a time conditioned on
+    # the previous text (accuracy over throughput).
     chunking: str = "batched"
     # Whisper quality gates (faster-whisper exposes the same options):
     # a window is dropped as non-speech when no_speech_prob exceeds

@@ -467,7 +467,9 @@ int dispatch(int q_dtype, int cache_dtype, const Args& a, cudaStream_t st) {
 // (cache_dtype kI8) and may be null otherwise. With pos >= 0, nk/nv (and
 // nks/nvs for an int8 cache) are this step's rows: they are read at position
 // pos and stored into the cache there, in place; pos < 0 reads the cache as
-// it is. `split` is the number of blocks (one cluster) per (window, head), 1
+// it is. A pos at or past ctx takes the last position, ctx - 1: the write is
+// clamped as the JAX package's dynamic_update_slice clamps its start, so a
+// row never lands outside the cache. `split` is the number of blocks (one cluster) per (window, head), 1
 // to 8, or 0 to let the launcher choose from the shape; the result does not
 // depend on it beyond the order of the f32 sums. At most 32 beams. Launches
 // on `stream` and returns the cudaError_t of the launch.
@@ -477,8 +479,9 @@ extern "C" int ancestor_attention_fwd(const void* q, void* ck, void* cv, void* k
                                       const void* nvs, int pos, int bw, int k, int h, int ctx,
                                       int hd, int q_dtype, int cache_dtype, int split,
                                       void* stream) {
-  if (bw <= 0 || k <= 0 || k > kMaxBeams || h <= 0 || h > 65535 || ctx <= 0 || pos >= ctx)
+  if (bw <= 0 || k <= 0 || k > kMaxBeams || h <= 0 || h > 65535 || ctx <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (pos >= ctx) pos = ctx - 1;
   if (cache_dtype == kI8 && (ks == nullptr || vs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (pos >= 0 && (nk == nullptr || nv == nullptr ||

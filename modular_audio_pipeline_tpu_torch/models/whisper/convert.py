@@ -17,7 +17,7 @@ import torch
 
 from ...exceptions import ModelLoadError
 
-__all__ = ["flatten_tree", "unflatten_tree", "load_params", "params_from_numpy"]
+__all__ = ["flatten_tree", "unflatten_tree", "save_params", "load_params", "params_from_numpy"]
 
 
 def flatten_tree(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -40,6 +40,12 @@ def unflatten_tree(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[parts[-1]] = v
     return tree
+
+
+def save_params(params: Dict[str, Any], dst: str) -> None:
+    """A nested numpy tree -> ``<dst>/params.npz`` (the JAX package's format)."""
+    Path(dst).mkdir(parents=True, exist_ok=True)
+    np.savez(Path(dst) / "params.npz", **flatten_tree(params))
 
 
 def load_params(src: str) -> Dict[str, Any]:
@@ -81,8 +87,9 @@ def params_from_numpy(
             out[k] = params_from_numpy(v, device, dtype)
             continue
         arr = np.ascontiguousarray(np.asarray(v))
-        if arr.dtype.kind == "f" and arr.dtype not in (np.float16, np.float32, np.float64):
-            arr = arr.astype(np.float32)  # e.g. ml_dtypes.bfloat16 from a JAX tree
+        if arr.dtype.kind == "V" or (arr.dtype.kind == "f"
+                                     and arr.dtype not in (np.float16, np.float32, np.float64)):
+            arr = arr.astype(np.float32)  # ml_dtypes' bfloat16 (kind "V") from a JAX tree
         t = torch.from_numpy(arr)
         if t.is_floating_point():
             t = t.float() if k.endswith("_ws") else t.to(dtype)

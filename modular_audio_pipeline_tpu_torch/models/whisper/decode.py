@@ -388,9 +388,11 @@ def _beam_stage(params, dims, xa_k, xa_v, st, suppress, blank, o, stage_end):
         anc = None
         if o["ancestry"]:
             # never move the cache: permute the ancestor table and claim
-            # the position about to be written for each row itself
+            # the position about to be written for each row itself (past
+            # the cache's end the last position, where decoder_forward
+            # writes, as the JAX package's clamped dynamic_update_slice)
             anc = st["anc"].gather(1, live_src[:, :, None].expand_as(st["anc"]))
-            anc[:, :, cache.pos] = own
+            anc[:, :, min(cache.pos, anc.shape[-1] - 1)] = own
             st["anc"] = anc
         else:
             # physical reorder of the whole cache (the A/B reference path)

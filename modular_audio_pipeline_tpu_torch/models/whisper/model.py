@@ -259,6 +259,20 @@ def _cross_attention(qx: torch.Tensor, xk, xv, dtype, return_probs: bool = False
     return y.reshape(bq, h, s, hd), out_probs
 
 
+def _pos_rows(pos_emb: torch.Tensor, pos0: int, s: int) -> torch.Tensor:
+    """Positional rows of positions ``pos0 .. pos0 + s - 1``: a position
+    past the table (the seek loop's long prompt runs past ``n_text_ctx``)
+    gets a zero row, as the JAX package's one-hot product over the table
+    gives it."""
+    n = pos_emb.shape[0]
+    if pos0 + s <= n:
+        return pos_emb[pos0 : pos0 + s]
+    rows = pos_emb.new_zeros((s, pos_emb.shape[1]))
+    if pos0 < n:
+        rows[: n - pos0] = pos_emb[pos0:]
+    return rows
+
+
 def decoder_forward(
     params: Params,
     dims: WhisperDims,
@@ -294,12 +308,15 @@ def decoder_forward(
     pos0 = cache.pos
     dev = tokens.device
 
-    x = dec["tok_emb"][tokens] + dec["pos_emb"][pos0 : pos0 + s]
+    x = dec["tok_emb"][tokens] + _pos_rows(dec["pos_emb"], pos0, s)
 
     # query i (absolute pos0+i) attends to cache positions <= pos0+i
     q_pos = pos0 + torch.arange(s, device=dev)[:, None]
     k_pos = torch.arange(ctx, device=dev)[None, :]
     self_mask = torch.where(k_pos <= q_pos, 0.0, float("-inf")).float()  # [S, ctx]
+    # where this step's rows go: past the cache's end the JAX package's
+    # dynamic_update_slice clamps the start, so they overwrite the last rows
+    wpos = max(0, min(pos0, ctx - s))
 
     quant = cache.k.dtype == torch.int8
     cross_probs = []
@@ -321,28 +338,28 @@ def decoder_forward(
                 v_q, v_s = _quantize_rows(v_new)
                 y = ancestor_attention(
                     qs, cache.k, cache.v, cache.k_scale, cache.v_scale, l, anc,
-                    self_mask[0], new_k=k_q, new_v=v_q, new_ks=k_s, new_vs=v_s, pos=pos0,
+                    self_mask[0], new_k=k_q, new_v=v_q, new_ks=k_s, new_vs=v_s, pos=wpos,
                 )
             else:
                 y = ancestor_attention(
                     qs, cache.k, cache.v, None, None, l, anc, self_mask[0],
-                    new_k=k_new, new_v=v_new, pos=pos0,
+                    new_k=k_new, new_v=v_new, pos=wpos,
                 )
         elif quant:
             k_q, k_s = _quantize_rows(k_new)
             v_q, v_s = _quantize_rows(v_new)
-            cache.k[l, :, :, pos0 : pos0 + s] = k_q
-            cache.v[l, :, :, pos0 : pos0 + s] = v_q
-            cache.k_scale[l, :, :, pos0 : pos0 + s] = k_s
-            cache.v_scale[l, :, :, pos0 : pos0 + s] = v_s
+            cache.k[l, :, :, wpos : wpos + s] = k_q
+            cache.v[l, :, :, wpos : wpos + s] = v_q
+            cache.k_scale[l, :, :, wpos : wpos + s] = k_s
+            cache.v_scale[l, :, :, wpos : wpos + s] = v_s
             qs = (q * hd ** -0.5).to(dtype)
             logits = torch.matmul(qs.float(), cache.k[l].float().transpose(-1, -2))
             logits = logits * cache.k_scale[l][:, :, None, :] + self_mask
             probs = torch.softmax(logits, dim=-1) * cache.v_scale[l][:, :, None, :]
             y = torch.matmul(probs.to(dtype).float(), cache.v[l].float()).to(dtype)
         else:
-            cache.k[l, :, :, pos0 : pos0 + s] = k_new
-            cache.v[l, :, :, pos0 : pos0 + s] = v_new
+            cache.k[l, :, :, wpos : wpos + s] = k_new
+            cache.v[l, :, :, wpos : wpos + s] = v_new
             y = _attention(q, cache.k[l], cache.v[l], self_mask)
         x = resid + _proj(_merge_heads(y), p["attn"], "o")
 

@@ -32,7 +32,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 def _store_rows(ck_all, cv_all, ks_all, vs_all, layer, new_k, new_v, new_ks, new_vs, pos):
     """Write this step's rows ``[BK, H, 1, hd]`` (and ``[BK, H, 1]``
-    scales) at position ``pos`` of layer ``layer``, in place."""
+    scales) at position ``pos`` of layer ``layer``, in place. A ``pos``
+    past the cache's end writes the last position: the JAX package's
+    ``dynamic_update_slice`` clamps its start so."""
+    pos = min(pos, ck_all.shape[3] - 1)
     ck_all[layer, :, :, pos] = new_k[:, :, 0]
     cv_all[layer, :, :, pos] = new_v[:, :, 0]
     if ks_all is not None:
@@ -224,8 +227,9 @@ def ancestor_attention(
 
     Returns ``y [BK, H, 1, hd]`` and MUTATES the cache: with
     ``new_k``/``new_v`` (and the int8 scales) this step's rows are stored
-    at ``pos`` of layer ``layer`` in place, and attention reads them with
-    the rest. On CUDA tensors the kernel itself reads the new rows at
+    at ``pos`` of layer ``layer`` in place (at the last position when
+    ``pos`` is at or past the context, as the JAX package clamps it), and
+    attention reads them with the rest. On CUDA tensors the kernel itself reads the new rows at
     ``pos`` and stores them (contiguous rows of the cache's type; anything
     else is stored by one small copy per tensor right before the launch);
     it runs on the current stream and raises on anything it does not take
@@ -247,8 +251,8 @@ def ancestor_attention(
     bw, kq, ctx = anc.shape
     rows = (None, None, None, None, -1)
     if new_k is not None:
-        if not 0 <= pos < ctx:
-            raise ValueError(f"ancestor_attention: pos {pos} outside the context of {ctx}")
+        if pos < 0:
+            raise ValueError(f"ancestor_attention: negative pos {pos}")
         if _rows_fit_kernel(q_scaled, ck_all, new_k, new_v, new_ks, new_vs):
             rows = (new_k.data_ptr(), new_v.data_ptr(),
                     None if new_ks is None else new_ks.data_ptr(),

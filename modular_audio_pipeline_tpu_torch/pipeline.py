@@ -3,7 +3,8 @@
 Counterpart of ``modular_audio_pipeline_tpu/pipeline.py``, stage for
 stage: discover -> convert -> denoise -> separate -> normalize ->
 loudness -> silence removal -> VAD -> transcribe -> diarize -> align ->
-timestamp back-mapping -> redundancy -> merge -> JSON, with the same
+timestamp back-mapping -> redundancy -> merge -> optional LLM analysis ->
+JSON, with the same
 component selection (an injected stage, else the first-party one, else
 its NoOp when the config turns it off), the same failure-to-
 ``PipelineResult`` policy, the same output JSON schema, and per-stage
@@ -15,9 +16,11 @@ on the device from the denoise to the transcriber and the diarizer; a
 WAV is still written at every stage boundary, on a worker thread. Every
 stage runs on ``device`` (None: CUDA, raising without one).
 
-Unported options raise ``NotImplementedError`` naming their ROADMAP.md
-item: ``llm.enabled``, a ``tpu.mesh_shape`` axis above 1. As in the JAX
-package, ``SegmentMerger`` builds new segments without
+A ``tpu.mesh_shape`` axis above 1 raises ``NotImplementedError`` naming
+its ROADMAP.md item (multi-GPU is not ported). With ``llm.enabled`` the
+hybrid post-processor (``post_processing_hybrid``; a local LM runs on
+``device``) analyses the final text, best effort as in the JAX package. As
+in the JAX package, ``SegmentMerger`` builds new segments without
 ``original_start``/``original_end``.
 """
 
@@ -55,7 +58,6 @@ from .utils import (
     CheckpointManager,
     ensure_directory,
     get_audio_duration,
-    not_ported,
     refuse_mesh,
     resolve_device,
 )
@@ -122,8 +124,6 @@ class AudioPipeline:
         self.config = config or get_default_config()
         self.config.validate()
         refuse_mesh(self.config)
-        if self.config.llm.enabled:
-            raise not_ported("LLM post-processing (llm.enabled)", "LM post-processing")
         self.device = resolve_device(device)
 
         self.media_dir = ensure_directory(self.config.media_dir)
@@ -187,6 +187,27 @@ class AudioPipeline:
             self.redundancy = RedundancyRemover.from_config(self.config)
         else:
             self.redundancy = NoOpRedundancyRemover()
+
+        # the LLM post-processor: best effort, never fatal (as the JAX package)
+        self.llm_processor = None
+        if self.config.llm.enabled:
+            try:
+                from .post_processing_hybrid import HybridLLMPostProcessor
+
+                self.llm_processor = HybridLLMPostProcessor(
+                    device=self.config.llm.device,
+                    max_length=self.config.llm.max_length,
+                    temperature=self.config.llm.temperature,
+                    force_local=not self.config.llm.use_openai,
+                    openai_model=self.config.llm.openai_model,
+                    local_model=self.config.llm.local_model,
+                    lm_device=dev,
+                )
+                info = self.llm_processor.get_backend_info()
+                logger.info("LLM initialized: %s (%s)", info["backend"], info["model"])
+            except Exception as exc:
+                logger.error("Failed to initialize LLM: %s", exc)
+                self.llm_processor = None
 
         self._timestamp_mappings: List[TimestampMapping] = []
 
@@ -399,7 +420,23 @@ class AudioPipeline:
                 merger = SegmentMerger(max_gap_s=self.config.segment_merging.max_gap_s)
                 final_segments = merger.merge(final_segments)
 
-            # 11. serialize
+            # 11a. LLM analysis (optional, never fatal)
+            llm_analysis = None
+            if self.llm_processor:
+                try:
+                    logger.info("Analyzing with LLM...")
+                    with timer.measure("llm"):
+                        full_text = " ".join(s["text"] for s in final_segments)
+                        llm_analysis = self.llm_processor.process(full_text)
+                    if "error" not in llm_analysis:
+                        logger.info("LLM analysis complete")
+                    else:
+                        logger.warning("LLM analysis failed: %s", llm_analysis["error"])
+                except Exception as exc:
+                    logger.warning("LLM processing failed: %s", exc)
+                    llm_analysis = {"error": str(exc)}
+
+            # 11b. serialize
             flush_writes()  # all WAV checkpoints on disk before we report
             wall = time.perf_counter() - run_start
             try:
@@ -419,6 +456,8 @@ class AudioPipeline:
                 },
                 "segments": final_segments,
             }
+            if llm_analysis and "error" not in llm_analysis:
+                output_data["llm_analysis"] = llm_analysis
 
             out_path = os.path.join(self.results_dir, f"{base}_transcription.json")
             with open(out_path, "w", encoding="utf-8") as f:
@@ -430,6 +469,7 @@ class AudioPipeline:
                 input_file=str(media_file),
                 output_file=out_path,
                 segments=final_segments,
+                llm_analysis=llm_analysis,
                 metadata={
                     "model": self.config.transcription.model,
                     "backend": self.config.transcription.backend,

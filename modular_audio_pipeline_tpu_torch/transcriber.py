@@ -16,14 +16,16 @@ are decoded again up a ladder of sampling temperatures; with
 ``word_timestamps`` each segment carries DTW-aligned ``words``;
 ``compute_type="int8"`` quantises the decoder's weights
 (``ops/quant.py``); ``language="auto"`` detects the language from the
-first window. Inside ``AudioPipeline`` the transcribers read the previous
+first window. ``chunking="sequential"`` runs whisper's seek loop instead
+(:meth:`TorchWhisperBackend.seek_decode_step`, shared with
+``streaming.StreamingSession``): one window at a time, conditioned on the
+text decoded so far, the seek pointer advanced by the last completed
+segment. Inside ``AudioPipeline`` the transcribers read the previous
 stage's published buffer (``audio_io.get_buffer``) and cut a device
 tensor into windows where it lies.
 
 Runs on CUDA unless the caller passes ``device="cpu"``: ``device=None``
-means ``"cuda"`` and raises when no CUDA device is present. Options of the
-JAX transcriber that this port does not run yet (``chunking="sequential"``)
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+means ``"cuda"`` and raises when no CUDA device is present.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import time
 import zlib
 from dataclasses import replace
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,7 +57,7 @@ from .models.whisper.timestamps import align_words, align_words_batched
 from .models.whisper.tokenizer import WhisperTokenizer, load_tokenizer
 from .ops.mel import log_mel
 from .ops.quant import quantize_decoder
-from .utils import SHIPPED_WEIGHTS, not_ported, resolve_device, retry_with_backoff
+from .utils import SHIPPED_WEIGHTS, resolve_device, retry_with_backoff
 
 logger = logging.getLogger(__name__)
 
@@ -76,13 +78,6 @@ def _configure(backend: "TorchWhisperBackend", tc) -> None:
     backend.patience = tc.patience
     backend.kv_cache_dtype = getattr(tc, "kv_cache_dtype", "int8")
     backend.condition_on_previous_text = getattr(tc, "condition_on_previous_text", True)
-
-
-def _no_retry_unported(exc: Exception, attempt: int) -> None:
-    """Retrying cannot help an option that is not ported (NotImplementedError
-    is a RuntimeError, which transcribe retries): re-raise at once."""
-    if isinstance(exc, NotImplementedError):
-        raise exc
 
 
 def _retry_rng(temp_idx: int, device: torch.device) -> torch.Generator:
@@ -155,7 +150,6 @@ class TorchWhisperBackend:
     def load(self) -> None:
         if self.params is not None:
             return
-        self.check_supported()
         # "int8" loads bf16, then quantises the decoder below
         dtype = _DTYPES.get(self.compute_dtype, torch.bfloat16)
         path = self.weights_path or str(SHIPPED_WEIGHTS / f"whisper-{self.model_name}")
@@ -257,19 +251,16 @@ class TorchWhisperBackend:
             kv_int8=self.kv_cache_dtype == "int8",
         )
 
-    def check_supported(self) -> None:
-        """Raise NotImplementedError for an option this port cannot run yet."""
-        if self.chunking != "batched":
-            raise not_ported(f"chunking={self.chunking!r} (the seek loop)", "sequential chunking")
-
     def transcribe_buffer(self, buf) -> Dict[str, Any]:
         """Transcribe a published stage buffer (``audio_io.AudioBuffer``):
         a padded tensor on the device is cut into its 30 s windows where it
-        lies; a host buffer, another sample rate or a length off the window
-        grid takes the host path."""
+        lies; a host buffer, another sample rate, a length off the window
+        grid or sequential chunking (the seek loop is driven from the host)
+        takes the host path."""
         win = int(_WINDOW_S * _SR)
         t = buf.tensor
-        if t is None or buf.sr != _SR or int(t.shape[-1]) % win:
+        if (t is None or buf.sr != _SR or self.chunking == "sequential"
+                or int(t.shape[-1]) % win):
             return self.transcribe_array(buf.as_host(), buf.sr)
         return self.transcribe_array(None, _SR, _dev=t, _n_valid=buf.n_valid)
 
@@ -277,7 +268,6 @@ class TorchWhisperBackend:
                          ) -> Dict[str, Any]:
         """``_dev``/``_n_valid``: a padded device waveform (zeros past
         ``_n_valid``, a whole number of windows long) in place of ``audio``."""
-        self.check_supported()
         self.load()
         win = int(_WINDOW_S * _SR)
         if _dev is None:
@@ -306,6 +296,9 @@ class TorchWhisperBackend:
             language, _ = detect_language(self.params, self.dims, self.tokenizer, first_mel)
             logger.info("Detected language: %s", language)
         opts = self._decode_options(language)
+
+        if self.chunking == "sequential":  # transcribe_buffer sends it the host audio
+            return self._transcribe_sequential(audio, duration, opts, language)
 
         segments: List[Dict[str, Any]] = []
         texts: List[str] = []
@@ -363,6 +356,162 @@ class TorchWhisperBackend:
             "duration": duration,
         }
 
+    def _transcribe_sequential(self, audio: np.ndarray, duration: float, opts: DecodeOptions,
+                               language: str) -> Dict[str, Any]:
+        """Whisper's seek loop over the whole file: each 30 s window is
+        conditioned on the text decoded before it, and the seek pointer
+        advances by the window's last completed segment, so a segment that
+        straddles a fixed 30 s boundary is decoded again from its start.
+        Windows that fail the no-speech gate are skipped whole. Segments
+        carry no words (the JAX package attaches none here either)."""
+        win = int(_WINDOW_S * _SR)
+        segments: List[Dict[str, Any]] = []
+        all_tokens: List[int] = []  # decoded text tokens, for the conditioning
+        self.last_stats = {"windows": 0, "decode_tokens": 0, "retried_windows": 0,
+                           "align_s": 0.0}
+        seek = 0
+        while seek < len(audio):
+            segs, advance, all_tokens = self.seek_decode_step(
+                audio[seek : seek + win], seek, opts, all_tokens)
+            segments.extend(segs)
+            seek += advance
+        return {
+            "text": " ".join(s["text"] for s in segments if s["text"]),
+            "segments": segments,
+            "language": language,
+            "duration": duration,
+        }
+
+    def seek_decode_step(self, chunk: np.ndarray, seek: int, opts: DecodeOptions,
+                         all_tokens: List[int]) -> Tuple[List[Dict[str, Any]], int, List[int]]:
+        """Decode ONE seek window (at most 30 s of audio at sample offset
+        ``seek``), conditioned on the text tokens consumed so far.
+
+        Returns ``(segments, advance_samples, all_tokens)``, the step that
+        the sequential loop and ``streaming.StreamingSession`` share;
+        ``advance_samples`` is always > 0. Once there is text to condition
+        on, the prompt is left-padded to ``n_text_ctx // 2 - 1`` tokens
+        with the space token, so the prefix is 227 tokens long (the previous
+        text's start token, 223 prompt tokens and the 3-token SOT block of a
+        set language), and a window that decodes its full budget runs past
+        position 447 (``decoder_forward`` treats those positions as the JAX
+        package does).
+        """
+        win = int(_WINDOW_S * _SR)
+        base_prompt = list(self._prompt_tokens())
+        cap = self.dims.n_text_ctx // 2 - 1
+        space = self.tokenizer.encode(" ")
+        pad_tok = space[0] if space else 220
+
+        win_dur = len(chunk) / _SR
+        padded = np.zeros(win, dtype=np.float32)
+        padded[: len(chunk)] = chunk
+        if self.condition_on_previous_text:
+            prompt = (base_prompt + all_tokens)[-cap:]
+        else:
+            prompt = base_prompt[-cap:]
+        # one prompt length after the first window, as the JAX package
+        # pads it (one compiled prefill shape there)
+        if prompt:
+            prompt = [pad_tok] * (cap - len(prompt)) + prompt
+        w_opts = replace(opts, prompt_tokens=tuple(prompt))
+        mel = log_mel(torch.from_numpy(padded[None]).to(self.device), n_mels=self.dims.n_mels)
+        result = decode_windows(self.params, self.dims, self.tokenizer, mel, w_opts)
+        avg_lp = float(result.avg_logprobs[0])
+        no_speech = float(result.no_speech_probs[0])
+        tokens_row = result.tokens[0]
+        stats = self.last_stats
+        stats["windows"] = stats.get("windows", 0) + 1
+        stats["decode_tokens"] = stats.get("decode_tokens", 0) + int(result.lengths[0])
+
+        if self.temperature_fallback and w_opts.temperature == 0.0:
+            text = self.tokenizer.decode([t for t in tokens_row if t < self.tokenizer.eot])
+            if self._needs_fallback(avg_lp, tokens_row, text):
+                stats["retried_windows"] = stats.get("retried_windows", 0) + 1
+                retried = self._retry_windows(mel, [0], w_opts)
+                if 0 in retried:
+                    tokens_row, avg_lp = retried[0]
+
+        if self._should_skip_window(no_speech, avg_lp):
+            return [], len(chunk), all_tokens  # a silent window: move on
+
+        segs, advance_s, consumed = self._parse_window_seek(
+            tokens_row, avg_lp, seek / _SR, win_dur)
+        if advance_s <= 0:  # degenerate grammar output: force progress
+            advance_s = win_dur
+        return segs, int(round(advance_s * _SR)), all_tokens + consumed
+
+    def _parse_window_seek(self, tokens, avg_logprob: float, offset: float, win_dur: float):
+        """openai-whisper's segment slicing for the seek loop.
+
+        Returns ``(segments, advance_seconds, consumed_text_tokens)``: when
+        the window ends mid-segment (the last timestamps form a pair), only
+        completed segments are emitted and the seek advances to the last
+        paired timestamp; a single trailing timestamp means the whole
+        window was consumed.
+        """
+        tok = self.tokenizer
+        content: List[int] = []
+        for t in tokens:
+            t = int(t)
+            if t == tok.eot:
+                break
+            content.append(t)
+        if not content:
+            return [], win_dur, []
+
+        is_ts = [tok.is_timestamp(t) for t in content]
+        single_ts_ending = len(content) >= 2 and not is_ts[-2] and is_ts[-1]
+        consecutive = [i + 1 for i in range(len(content) - 1) if is_ts[i] and is_ts[i + 1]]
+
+        def emit(sub: List[int], out: List[Dict[str, Any]]):
+            start_ts = tok.timestamp_to_seconds(sub[0])
+            end_ts = tok.timestamp_to_seconds(sub[-1])
+            if start_ts >= win_dur:
+                return
+            text = tok.decode([t for t in sub if not tok.is_timestamp(t)]).strip()
+            if not text:
+                return
+            out.append({
+                "start": round(offset + start_ts, 3),
+                "end": round(offset + min(end_ts, win_dur), 3),
+                "text": text,
+                "confidence": avg_logprob,
+            })
+
+        out: List[Dict[str, Any]] = []
+        if consecutive:
+            slices = list(consecutive)
+            if single_ts_ending:
+                slices.append(len(content))
+            last = 0
+            for cur in slices:
+                emit(content[last:cur], out)
+                last = cur
+            if single_ts_ending:
+                advance = win_dur  # the whole window consumed
+            else:
+                # seek to the end of the last completed segment
+                advance = tok.timestamp_to_seconds(content[last - 1])
+            consumed = [t for t in content[:last] if not tok.is_timestamp(t)]
+            return out, advance, consumed
+
+        # no completed pair: one segment spanning to the last timestamp
+        dur = win_dur
+        ts_list = [t for t in content if tok.is_timestamp(t)]
+        if ts_list and ts_list[-1] != tok.timestamp_begin:
+            dur = min(win_dur, tok.timestamp_to_seconds(ts_list[-1]))
+        text = tok.decode([t for t in content if not tok.is_timestamp(t)]).strip()
+        if text:
+            out.append({
+                "start": round(offset, 3),
+                "end": round(offset + dur, 3),
+                "text": text,
+                "confidence": avg_logprob,
+            })
+        consumed = [t for t in content if not tok.is_timestamp(t)]
+        return out, win_dur, consumed
+
     def _retry_windows(self, mel: torch.Tensor, failing: List[int], opts: DecodeOptions
                        ) -> Dict[int, tuple]:
         """Decode the failing windows again up the temperature ladder.
@@ -417,7 +566,8 @@ class TorchWhisperBackend:
 
     def _attach_words(self, segs: List[Dict[str, Any]], tokens, audio_kv, window_idx: int,
                       opts: DecodeOptions, offset: float) -> None:
-        """Single-window DTW word alignment."""
+        """Single-window DTW word alignment (no caller in either package's
+        paths; tests hold it equal to the batched pass)."""
         xa_k, xa_v = audio_kv
         prefix, _ = build_initial_tokens(self.tokenizer, opts)
         i = window_idx
@@ -596,7 +746,6 @@ class WhisperTranscriber:
     @retry_with_backoff(
         config=RetryConfig(max_attempts=2, initial_delay_s=2.0),
         exceptions=(RuntimeError,),
-        on_retry=_no_retry_unported,
     )
     def transcribe(self, input_wav: str) -> Dict[str, Any]:
         logger.info("Transcribing: %s", input_wav)

@@ -183,8 +183,17 @@ def test_ancestry_kernel_takes_rows_it_cannot_read_in_place(cuda):
     assert (y.float() - y_ref.float()).abs().max().item() <= TOL[torch.bfloat16]
     for a, b in zip(mine, plain):
         assert torch.equal(a, b)
+    # a position past the context writes the last row, as the plain version
+    # (and the JAX package's clamped dynamic_update_slice) does
+    y = anc_ops.ancestor_attention(q, *mine, layer, anc, mask, *new, 64)
+    y_ref = anc_ops.ancestor_attention_reference(q, *plain, layer, anc, mask, *new, 64)
+    torch.cuda.synchronize()
+    assert (y.float() - y_ref.float()).abs().max().item() <= TOL[torch.bfloat16]
+    for a, b in zip(mine, plain):
+        assert torch.equal(a, b)
+    assert torch.equal(mine[0][layer, :, :, 63], new[0][:, :, 0])
     with pytest.raises(ValueError):
-        anc_ops.ancestor_attention(q, *mine, layer, anc, mask, *new, 64)  # pos outside ctx
+        anc_ops.ancestor_attention(q, *mine, layer, anc, mask, *new, -1)
 
 
 def test_ancestry_kernel_refuses_what_it_does_not_take(cuda):
