@@ -139,7 +139,28 @@ Phases (any failure exits non-zero and prints no result line):
    ``AudioPipeline`` at phase 8's configuration with ``llm.enabled`` (the
    heuristic tier) and sequential chunking, then batched chunking, and
    ``compare_transcriptions`` between the two JSONs.
+10. The training path. (a) Large-v3-turbo fine-tuning at full width and
+   depth, f32, random weights from seed 0, through
+   ``training.train.setup`` at its defaults (AdamW lr 1e-5, weight decay
+   0.01, batch 8, seq-len 224) on 8 synthetic sentences: at step 0 the
+   loss and every leaf's gradient through the kernels against the plain
+   versions (``TRAIN_LOSS_RTOL``, ``TRAIN_GRAD_REL``), every encoder
+   block's attention q/k weight gradient non-zero; one warm-up and 4 timed
+   steps on the batch (launch counts reset just before and read just
+   after: 32 flash launches a step), falling losses, ms per step, samples
+   per second, peak memory; the checkpoint saved as ``params.npz``,
+   reloaded, and one forward with equal bits. (c) The flash kernel at the
+   training shape [8, 20, 1500, 64] f32 against its plain version, timed
+   beside ``scaled_dot_product_attention`` in f32 and its f32 bound, the
+   backward recompute's time; its autograd.Function's q/k/v gradients
+   against autograd through the plain version there and at [2, 4, 1001,
+   32] (``FLASH_GRAD_TOL``). (b) The ConvVAD, ConvEmbedder,
+   SegmentationNet and MaskUNet trainers, 5 steps each on the card from
+   their shipped bundles: finite losses, the step-0 loss within
+   ``SMALL_LOSS_RTOL`` of one step on the CPU, the saved checkpoint
+   reloaded into the module bit for bit, ms per step.
 
+The profiled runs of phases 4 and 4b decode ``PROFILE_TOKENS`` tokens.
 Float32 products run in full f32 (TF32 off for matmuls and cuDNN
 convolutions). The last lines are the card, the per-kernel JSON line and
 ``{"ok": true, "device": {...}}``.
@@ -755,8 +776,9 @@ def phase_end_to_end(torch, wav: Path, seconds: float):
         raise AssertionError(f"main path skipped a kernel: {launches}")
     if launches["int8_matmul"] != 0:
         raise AssertionError(f"the bf16 path launched the int8 kernel: {launches}")
-    busy, top, _ = device_breakdown(torch, lambda: tr.transcribe(str(wav)), "e2e")
-    stats = b.last_stats
+    stats = dict(b.last_stats)  # the timed run's, before the profiled run replaces them
+    with first_steps(b):
+        busy, top, _ = device_breakdown(torch, lambda: tr.transcribe(str(wav)), "e2e")
     return launches, {"wall_s": wall, "realtime_x": seconds / wall,
                       "segments": len(out["segments"]),
                       "decode_tokens": stats["decode_tokens"], "encode_s": encode_s,
@@ -827,7 +849,8 @@ def phase_end_to_end_int8(torch, wav: Path, seconds: float):
     encode_s = time_ms(lambda: encode_audio_kv(b.params, b.dims, mel), 2, warmup=1) / 1e3
     log(f"e2e int8: encoder + cross K/V {encode_s:.3f} s of the wall time")
     wrappers = _reset_launches()
-    busy, top, mine = device_breakdown(torch, lambda: tr.transcribe(str(wav)), "e2e int8")
+    with first_steps(b):
+        busy, top, mine = device_breakdown(torch, lambda: tr.transcribe(str(wav)), "e2e int8")
     # one device launch per product: the kernel's launches on the device
     # equal the wrapper's calls, and no other int8 kernel (a reduction) ran
     on_device = mine["int8_matmul"][1]
@@ -842,6 +865,23 @@ def phase_end_to_end_int8(torch, wav: Path, seconds: float):
                       "top_kernels_ms": top, "int8_kernel_ms": mine["int8_matmul"][0],
                       "int8_products_by_m": {str(m): sum(c for (mm, _, _), c in shapes.items()
                                                          if mm == m) for m in by_m}}
+
+
+PROFILE_TOKENS = 16  # decode steps of a profiled run (of 224): the post-processing of a
+#                     whole run's trace took ~70 s per phase
+
+
+@contextlib.contextmanager
+def first_steps(backend):
+    """Cap the decode budget at ``PROFILE_TOKENS`` for a profiled run: the
+    whole batch still goes through the encoder, the prompt pass and (with
+    words) the alignment pass, with the first decode steps of every window."""
+    saved = backend.max_decode_tokens
+    backend.max_decode_tokens = PROFILE_TOKENS
+    try:
+        yield
+    finally:
+        backend.max_decode_tokens = saved
 
 
 def device_breakdown(torch, fn, label: str, top: int = 8):
@@ -2220,6 +2260,310 @@ def seek_pipeline(torch, tmp: Path, audio: np.ndarray) -> dict:
     return {"compare_sequential_to_batched": cmp}
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+TRAIN_LOSS_RTOL = 1e-5  # step-0 loss, kernels vs plain versions, f32
+TRAIN_GRAD_REL = 1e-3  # step-0 gradient of each leaf, kernels vs plain versions: the norm of
+#   the difference over the norm of the plain gradient. The kernel's f32 output differs from
+#   the plain version's by under FLASH_TOL_F32 per element; 32 encoder layers carry that into
+#   every gradient behind the first attention
+SMALL_LOSS_RTOL = 1e-4  # a small trainer's step-0 loss, card vs CPU: f32 (TF32 off) FFTs,
+#   convolutions and, for the segmentation network, the flash route in another order
+FLASH_GRAD_TOL = FLASH_TOL_F32  # q/k/v gradients through the kernel's autograd.Function vs
+#   autograd through the plain version, over the largest |gradient|: the backward is the same
+#   recompute; only the forward saved for nothing differs
+TRAIN_SHAPE = (8, 20, 1500, 64)  # the turbo encoder's attention at train.py's batch 8
+TRAIN_STEPS = 4  # timed steps after one warm-up step
+
+
+@contextlib.contextmanager
+def plain_recompute():
+    """Bind the Whisper model's flash calls to the plain version under
+    activation checkpointing: the plain forward, and in the backward the
+    recompute the kernel's autograd.Function makes. Without it the plain
+    version would keep the [8, 20, 1500, 1500] f32 probabilities of all 32
+    layers for the backward, 46 GB."""
+    from torch.utils.checkpoint import checkpoint
+
+    from modular_audio_pipeline_tpu_torch.models.whisper import model
+    from modular_audio_pipeline_tpu_torch.ops.attention import attention_reference
+
+    saved = model.flash_attention
+    model.flash_attention = lambda q, k, v: checkpoint(attention_reference, q, k, v,
+                                                       use_reentrant=False)
+    try:
+        yield
+    finally:
+        model.flash_attention = saved
+
+
+def _leaf_names(tree, prefix=""):
+    out = []
+    for k, v in tree.items():
+        out += _leaf_names(v, f"{prefix}/{k}") if isinstance(v, dict) else [f"{prefix}/{k}"]
+    return out
+
+
+def train_whisper(torch, tmp: Path) -> tuple:
+    """Phase 10a: large-v3-turbo fine-tuning at full width through
+    ``training.train``'s setup (f32, AdamW lr 1e-5, weight decay 0.01,
+    batch 8, seq-len 224) on 8 synthetic sentences."""
+    from modular_audio_pipeline_tpu_torch.models.vad_net import no_tf32
+    from modular_audio_pipeline_tpu_torch.models.whisper.convert import (
+        load_params, params_from_numpy, params_to_numpy, save_params)
+    from modular_audio_pipeline_tpu_torch.ops.attention import flash_attention
+    from modular_audio_pipeline_tpu_torch.training import synth_asr, train
+    from modular_audio_pipeline_tpu_torch.training.whisper_train import _forward_loss, tree_leaves
+
+    manifest, _ = synth_asr.make_dataset(str(tmp / "asr"), n_train=8, n_eval=1, seed=0)
+    out = tmp / "finetuned"
+    args = train.parse_args(["--manifest", manifest, "--model", "large-v3-turbo",
+                             "--weights", "random:0", "--out", str(out)])
+    t0 = time.perf_counter()
+    backend, dataset, state, train_step = train.setup(args, device="cuda")
+    batch = train.to_device(train.pad_batch(*next(dataset.batches(epoch=0)), 1), backend.device)
+    torch.cuda.synchronize()
+    dims, params = backend.dims, state.params
+    names, leaves = _leaf_names(params), tree_leaves(params)
+    n_params = sum(p.numel() for p in leaves)
+    log(f"train: random {args.model} f32 ({n_params / 1e6:.1f} M parameters) and a batch of "
+        f"{batch[0].shape[0]} x {batch[1].shape[1]} tokens ready in {time.perf_counter() - t0:.1f} s")
+
+    def loss_and_grads():
+        with no_tf32():
+            loss = _forward_loss(params, dims, *batch)
+            grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), grads
+
+    # step 0: the loss and every leaf's gradient through the kernel, then
+    # through the plain version
+    wrappers = _reset_launches()
+    loss_k, grads_k = loss_and_grads()
+    torch.cuda.synchronize()
+    grad_launches = wrappers["flash_attention"].launches
+    with plain_recompute():
+        loss_p, grads_p = loss_and_grads()
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    worst, worst_name = 0.0, ""
+    for name, gk, gp in zip(names, grads_k, grads_p):
+        rel = ((gk - gp).norm() / gp.norm().clamp_min(1e-30)).item()
+        if not rel <= TRAIN_GRAD_REL:
+            raise AssertionError(f"train: gradient of {name} {rel:.3e} from the plain version's "
+                                 f"(bound {TRAIN_GRAD_REL})")
+        if rel > worst:
+            worst, worst_name = rel, name
+    grads = dict(zip(names, grads_k))
+    plain = dict(zip(names, grads_p))
+    for leaf in ("q_w", "k_w"):  # the guard against a graph cut at the kernel
+        key = f"/encoder/blocks/attn/{leaf}"
+        for layer in range(dims.n_audio_layer):
+            gk, gp = grads[key][layer], plain[key][layer]
+            rel = ((gk - gp).norm() / gp.norm().clamp_min(1e-30)).item()
+            if not (gk.abs().max().item() > 0 and rel <= TRAIN_GRAD_REL):
+                raise AssertionError(f"train: encoder block {layer} {leaf} gradient "
+                                     f"max {gk.abs().max().item():.3e}, {rel:.3e} from plain")
+    log(f"train step 0: loss {loss_k.item():.6f} (plain {loss_p.item():.6f}, rel {loss_rel:.2e}, "
+        f"tol {TRAIN_LOSS_RTOL}); worst leaf gradient {worst:.2e} from plain ({worst_name}, "
+        f"bound {TRAIN_GRAD_REL}); every encoder block's attn q_w/k_w gradient non-zero; "
+        f"{grad_launches} flash launches")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and grad_launches == dims.n_audio_layer):
+        raise AssertionError(f"train step 0: loss rel {loss_rel}, launches {grad_launches}")
+    del grads_k, grads_p, grads, plain
+    torch.cuda.empty_cache()
+
+    # one warm-up step, then TRAIN_STEPS timed steps on the same batch
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, loss = train_step(state, *batch)
+    losses = [loss]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    wrappers = _reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, loss = train_step(state, *batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = {name: w.launches for name, w in wrappers.items()}
+    losses = [x.item() for x in losses]
+    peak = torch.cuda.max_memory_allocated()
+    n = batch[0].shape[0]
+    log(f"train: warm-up step {warm_s:.2f} s; {step_s * 1e3:.1f} ms per step, "
+        f"{n / step_s:.2f} samples/s; losses {[round(x, 5) for x in losses]}; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches over {TRAIN_STEPS} steps {launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses}")
+    if launches["flash_attention"] != dims.n_audio_layer * TRAIN_STEPS:
+        raise AssertionError(f"train: {launches['flash_attention']} flash launches in "
+                             f"{TRAIN_STEPS} steps, not {dims.n_audio_layer} per step")
+
+    # the checkpoint: params.npz in the JAX layout, reloaded, one forward
+    t0 = time.perf_counter()
+    save_params(params_to_numpy(state.params), str(out))
+    reloaded = params_from_numpy(load_params(str(out)), "cuda", torch.float32)
+    with torch.no_grad(), no_tf32():
+        a = _forward_loss(state.params, dims, *batch)
+        b = _forward_loss(reloaded, dims, *batch)
+    same = torch.equal(a, b)
+    log(f"train: params.npz saved, reloaded and run in {time.perf_counter() - t0:.1f} s; "
+        f"loss {a.item():.6f} before and {b.item():.6f} after, bit-equal {same}")
+    if not same:
+        raise AssertionError("train: the reloaded checkpoint computes other bits")
+    del state, backend, reloaded, batch, params, leaves
+    torch.cuda.empty_cache()
+    return launches, {"step_ms": step_s * 1e3, "samples_per_s": n / step_s, "warmup_s": warm_s,
+                      "losses": losses, "peak_memory_bytes": peak, "parameters": n_params,
+                      "step0_loss_rel": loss_rel, "step0_worst_grad_rel": worst,
+                      "step0_worst_grad_leaf": worst_name, "encoder_layers": dims.n_audio_layer}
+
+
+def flash_training_shape(torch) -> dict:
+    """Phase 10c, and the kernel at the training shape: the f32 SIMT route
+    at [8, 20, 1500, 64] against its plain version, timed beside
+    ``scaled_dot_product_attention`` in f32 and its f32 bound; the backward
+    recompute's time; the autograd.Function's q/k/v gradients against
+    autograd through the plain version there and at a ragged [2, 4, 1001, 32]."""
+    import torch.nn.functional as F
+
+    from modular_audio_pipeline_tpu_torch.ops.attention import attention_reference, flash_attention
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+
+    def grads_of(fn, q, k, v, go):
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = fn(qs, ks, vs)
+        return out.detach(), torch.autograd.grad(out, (qs, ks, vs), go)
+
+    grad_errs = {}
+    for shape in (TRAIN_SHAPE, (2, 4, 1001, 32)):
+        q, k, v, go = (torch.randn(shape, generator=g, device="cuda") for _ in range(4))
+        before = flash_attention.launches
+        out, gk = grads_of(flash_attention, q, k, v, go)
+        if flash_attention.launches != before + 1:
+            raise AssertionError("flash gradient: the forward did not launch the kernel once")
+        ref, gp = grads_of(attention_reference, q, k, v, go)
+        err = (out - ref).abs().max().item()
+        gerr = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(gk, gp))
+        log(f"flash gradient f32 {shape}: output max_abs_err {err:.3e} (tol {FLASH_TOL_F32}), "
+            f"q/k/v gradients {gerr:.3e} of the largest (tol {FLASH_GRAD_TOL})")
+        if not (err <= FLASH_TOL_F32 and gerr <= FLASH_GRAD_TOL):
+            raise AssertionError(f"flash gradient at {shape}: err {err}, gradient {gerr}")
+        grad_errs[str(list(shape))] = gerr
+        del q, k, v, go, out, gk, ref, gp
+        torch.cuda.empty_cache()
+
+    q, k, v, go = (torch.randn(TRAIN_SHAPE, generator=g, device="cuda") for _ in range(4))
+    err = (flash_attention(q, k, v) - attention_reference(q, k, v)).abs().max().item()
+    ms = graph_ms([lambda: flash_attention(q, k, v)] * 2, reps=3)
+    plain_ms = time_ms(lambda: attention_reference(q, k, v), 2, warmup=1)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 5)
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+    backward_ms = time_ms(lambda: torch.autograd.grad(attention_reference(qs, ks, vs),
+                                                      (qs, ks, vs), go), 2, warmup=1)
+    b, h, s, d = TRAIN_SHAPE
+    n_bytes = 4 * q.numel() * q.element_size()
+    bound_ms, bound_by = bound(n_bytes, 4.0 * b * h * s * s * d, PEAK_F32_FLOPS)
+    exp_ms = b * h * s * s / exp_rate(torch) * 1e3
+    if exp_ms > bound_ms:
+        bound_ms, bound_by = exp_ms, "operations"
+    log(f"flash f32 {TRAIN_SHAPE} (training): kernel {ms:.3f} ms on the device, plain "
+        f"{plain_ms:.3f} ms, sdpa f32 {lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); "
+        f"the backward recompute {backward_ms:.3f} ms")
+    if not err <= FLASH_TOL_F32:
+        raise AssertionError(f"flash_attention at {TRAIN_SHAPE} f32: err {err}")
+    del q, k, v, go, qs, ks, vs
+    torch.cuda.empty_cache()
+    return {"shape": list(TRAIN_SHAPE), "dtype": "float32", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "backward_recompute_ms": backward_ms,
+            "grad_max_rel_err": grad_errs}
+
+
+def small_trainers(torch, tmp: Path) -> tuple:
+    """Phase 10b: the VAD, embedder, segmentation and separation trainers,
+    5 steps each on the card from their shipped bundles, the step-0 loss
+    against one step on the CPU, the saved checkpoint reloaded bit for bit."""
+    from modular_audio_pipeline_tpu_torch.models.diarization.embedding import ConvEmbedder
+    from modular_audio_pipeline_tpu_torch.models.diarization.segmentation import SegmentationNet
+    from modular_audio_pipeline_tpu_torch.models.separation.unet import MaskUNet
+    from modular_audio_pipeline_tpu_torch.models.vad_net import ConvVAD
+    from modular_audio_pipeline_tpu_torch.models.whisper.convert import load_params
+    from modular_audio_pipeline_tpu_torch.training import diarization, separation, vad
+    from modular_audio_pipeline_tpu_torch.utils import SHIPPED_WEIGHTS
+
+    # (trainer, bundle, module, where the checkpoint lands, arguments)
+    runs = {
+        "vad": (vad.train_vad, "vad-silero", ConvVAD, "vad-silero",
+                dict(n_train_clips=64, eval_clips=16)),
+        "embedder": (diarization.train_embedder, "diarization-embedding", ConvEmbedder, "", {}),
+        "segmentation": (diarization.train_segmentation, "diarization-segmentation",
+                         SegmentationNet, "", {}),
+        "separation": (separation.train_separator, "separation-htdemucs", MaskUNet, "", {}),
+    }
+    out, launches = {}, {}
+    for name, (fn, bundle, cls, sub, kw) in runs.items():
+        stamps, losses = [], []
+
+        def on_step(i, loss):
+            losses.append(loss.item())
+            stamps.append(time.perf_counter())
+
+        wrappers = _reset_launches()
+        t0 = time.perf_counter()
+        fn(str(tmp / "small" / name), steps=5, params=str(SHIPPED_WEIGHTS / bundle),
+           device="cuda", on_step=on_step, **kw)
+        total_s = time.perf_counter() - t0
+        launches[name] = wrappers["flash_attention"].launches
+        cpu_losses = []
+        fn(str(tmp / "small_cpu" / name), steps=1, params=str(SHIPPED_WEIGHTS / bundle),
+           device="cpu", on_step=lambda i, loss: cpu_losses.append(loss.item()), **kw)
+        rel = abs(losses[0] - cpu_losses[0]) / abs(cpu_losses[0])
+        saved = load_params(str(tmp / "small" / name / sub))
+        back = cls(saved, device="cuda").numpy_params()
+        same = _trees_equal(back, saved)
+        step_ms = (stamps[-1] - stamps[0]) / (len(stamps) - 1) * 1e3
+        log(f"train {name}: losses {[round(x, 5) for x in losses]}; step 0 {losses[0]:.6f} on the "
+            f"card, {cpu_losses[0]:.6f} on the CPU (rel {rel:.2e}, tol {SMALL_LOSS_RTOL}); "
+            f"{step_ms:.1f} ms per step after the first (host data synthesis included), "
+            f"{total_s:.1f} s in all; flash launches {launches[name]}; reloaded bit-equal {same}")
+        if not (all(np.isfinite(losses)) and len(losses) == 5 and rel <= SMALL_LOSS_RTOL
+                and same):
+            raise AssertionError(f"train {name}: losses {losses}, CPU {cpu_losses}, "
+                                 f"reloaded equal {same}")
+        out[name] = {"losses": losses, "cpu_step0_loss": cpu_losses[0], "step0_rel": rel,
+                     "step_ms": step_ms, "total_s": total_s}
+    if launches["segmentation"] != 5 * SegmentationNet.LAYERS:
+        raise AssertionError(f"train segmentation: {launches['segmentation']} flash launches")
+    return launches, out
+
+
+def _trees_equal(a: dict, b: dict) -> bool:
+    if a.keys() != b.keys():
+        return False
+    return all(_trees_equal(a[k], b[k]) if isinstance(a[k], dict)
+               else np.array_equal(a[k], np.asarray(b[k], np.float32)) for k in a)
+
+
+def phase_training(torch, tmp: Path):
+    """Phase 10: the training path."""
+    t0 = time.perf_counter()
+    launches, whisper = train_whisper(torch, tmp)
+    log(f"phase 10a done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    flash = flash_training_shape(torch)
+    flash["launches_per_step"] = launches["flash_attention"] // TRAIN_STEPS
+    whisper["backward_recompute_share"] = (flash["backward_recompute_ms"]
+                                           * whisper["encoder_layers"] / whisper["step_ms"])
+    log(f"phase 10c done in {time.perf_counter() - t0:.1f} s; the backward recompute is "
+        f"{whisper['backward_recompute_share']:.3f} of a step")
+    t0 = time.perf_counter()
+    small_launches, small = small_trainers(torch, tmp)
+    log(f"phase 10b done in {time.perf_counter() - t0:.1f} s")
+    return launches, {"whisper_turbo": whisper, "small": small, "flash_train": flash,
+                      "segmentation_flash_launches": small_launches["segmentation"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -2288,6 +2632,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         seek["phase_s"] = time.perf_counter() - t0
         log(f"phase 9 done in {seek['phase_s']:.1f} s")
+        t0 = time.perf_counter()
+        launches_train, training = phase_training(torch, Path(d))
+        torch.cuda.empty_cache()
+        training["phase_s"] = time.perf_counter() - t0
+        log(f"phase 10 done in {training['phase_s']:.1f} s")
     # each kernel's count from the main path that brings it: phase 6 (the
     # serving path) for the flash and ancestry kernels, phase 4b (the one
     # path with compute_type="int8") for the int8 product; each must also
@@ -2315,9 +2664,15 @@ def main() -> int:
             if launches_seek[name] <= 0:
                 raise AssertionError(f"{name} was not launched on the seek path")
             k["launches_seek_path"] = launches_seek[name]
+        if name == "flash_attention":  # the one kernel of the training path
+            if launches_train[name] <= 0:
+                raise AssertionError(f"{name} was not launched on the training path")
+            k["launches_training_path"] = launches_train[name]
+            k["f32_training_encoder"] = training["flash_train"]
     log(json.dumps({"end_to_end": e2e, "end_to_end_int8": e2e_int8,
                     "launches_bf16_path": launches, "proxy": proxy, "serving": serving,
-                    "separation": separation, "batch": batch, "seek": seek}))
+                    "separation": separation, "batch": batch, "seek": seek,
+                    "training": training}))
 
     print(name_power)
     print(json.dumps({"kernels": kernels}))

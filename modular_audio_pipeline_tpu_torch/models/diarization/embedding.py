@@ -58,6 +58,35 @@ class ConvEmbedder(nn.Module):
         self.requires_grad_(False)
         self.to(resolve_device(device))
 
+    @classmethod
+    def init_params(cls, seed: int = 0) -> Dict[str, Any]:
+        """Random parameters in the JAX layout, with the JAX package's
+        distributions drawn from a seeded ``torch.Generator`` (other numbers
+        than ``jax.random``'s)."""
+        g = torch.Generator().manual_seed(seed)
+        h = cls.HIDDEN
+
+        def conv(cin, cout, width):
+            w = torch.randn((cout, cin, width), generator=g) * (cin * width) ** -0.5
+            return {"w": w.numpy(), "b": np.zeros((cout,), np.float32)}
+
+        return {
+            "conv1": conv(19, h, 5), "conv2": conv(h, h, 3), "conv3": conv(h, h, 3),
+            "proj": {"w": (torch.randn((2 * h, cls.OUT), generator=g) * (2 * h) ** -0.5).numpy(),
+                     "b": np.zeros((cls.OUT,), np.float32)},
+        }
+
+    def numpy_params(self) -> Dict[str, Any]:
+        """The parameters in the JAX layout (host numpy), as ``params.npz``
+        holds them: the inverse of ``__init__``."""
+        def host(t):
+            return t.detach().cpu().numpy().copy()
+
+        out = {name: {"w": host(conv.weight), "b": host(conv.bias)}
+               for name, conv in zip(("conv1", "conv2", "conv3"), self.convs)}
+        out["proj"] = {"w": host(self.proj.weight.T), "b": host(self.proj.bias)}
+        return out
+
     def forward(self, audio: torch.Tensor) -> torch.Tensor:
         x = mfcc_batch(audio, sr=self.sr)[..., 1:].transpose(1, 2)  # [B, 19, T]
         with no_tf32():

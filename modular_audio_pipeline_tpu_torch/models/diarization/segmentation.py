@@ -98,6 +98,54 @@ class SegmentationNet(nn.Module):
         self.requires_grad_(False)
         self.to(resolve_device(device))
 
+    @classmethod
+    def init_params(cls, seed: int = 0) -> Dict[str, Any]:
+        """Random parameters in the JAX layout (blocks stacked over layers),
+        with the JAX package's distributions drawn from a seeded
+        ``torch.Generator`` (other numbers than ``jax.random``'s)."""
+        g = torch.Generator().manual_seed(seed)
+        d = cls.D
+
+        def mat(din, dout, lead=()):
+            return (torch.randn(lead + (din, dout), generator=g) * din**-0.5).numpy()
+
+        def ln():
+            return {"g": np.ones((cls.LAYERS, d), np.float32),
+                    "b": np.zeros((cls.LAYERS, d), np.float32)}
+
+        n = (cls.LAYERS,)
+        return {
+            "inp": {"w": mat(_N_MELS, d), "b": np.zeros((d,), np.float32)},
+            "head": {"w": mat(d, N_CLASSES), "b": np.zeros((N_CLASSES,), np.float32)},
+            "blocks": {"qkv": mat(d, 3 * d, n), "o": mat(d, d, n), "ln1": ln(),
+                       "fc1": mat(d, 4 * d, n), "fc2": mat(4 * d, d, n), "ln2": ln()},
+        }
+
+    def numpy_params(self) -> Dict[str, Any]:
+        """The parameters in the JAX layout (host numpy, blocks stacked over
+        layers), as ``params.npz`` holds them: the inverse of ``__init__``."""
+        def wt(lin):  # nn.Linear's [out, in] -> the JAX layout's [in, out]
+            return lin.weight.detach().cpu().numpy().T.copy()
+
+        def vec(t):
+            return t.detach().cpu().numpy().copy()
+
+        def stack(fn):
+            return np.stack([fn(b) for b in self.blocks])
+
+        return {
+            "inp": {"w": wt(self.inp), "b": vec(self.inp.bias)},
+            "head": {"w": wt(self.head), "b": vec(self.head.bias)},
+            "blocks": {
+                "qkv": stack(lambda b: wt(b.qkv)), "o": stack(lambda b: wt(b.o)),
+                "fc1": stack(lambda b: wt(b.fc1)), "fc2": stack(lambda b: wt(b.fc2)),
+                "ln1": {"g": stack(lambda b: vec(b.ln1.weight)),
+                        "b": stack(lambda b: vec(b.ln1.bias))},
+                "ln2": {"g": stack(lambda b: vec(b.ln2.weight)),
+                        "b": stack(lambda b: vec(b.ln2.bias))},
+            },
+        }
+
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         x = self.inp(mel)
         for block in self.blocks:

@@ -7,7 +7,9 @@ channel is added, both dimensions are padded to a multiple of 16, and four
 stride-2 3x3 convolutions, a 3x3 middle convolution and four stride-2
 transposed convolutions with skip connections (ReLU after each) and a 1x1
 sigmoid head predict a per-bin vocal mask. The weights load from the same
-``params.npz`` (convolutions ``[out, in, kh, kw]``).
+``params.npz`` (convolutions ``[out, in, kh, kw]``) into frozen parameters
+(a trainer unfreezes them); :func:`masking_loss` and :func:`dual_stem_loss`
+are the training objectives.
 
 The JAX package's "SAME" padding is kept exactly. A stride-2 convolution
 over an even size pads 0 before and 1 after (``F.conv2d``'s ``padding=1``
@@ -29,11 +31,12 @@ import torch.nn.functional as F
 from ...ops.stft import istft, stft
 from ..vad_net import no_tf32
 
-__all__ = ["MaskUNet"]
+__all__ = ["MaskUNet", "masking_loss", "dual_stem_loss"]
 
 _N_FFT = 2048
 _HOP = 512
 _LEVELS = 4
+_BASE = 32  # channel width of the first level
 
 
 class MaskUNet(nn.Module):
@@ -45,10 +48,42 @@ class MaskUNet(nn.Module):
 
         super().__init__()
         tensors = params_from_numpy(params, "cpu", torch.float32)
+        self.names = list(tensors)
         for name, p in tensors.items():
-            self.register_buffer(f"{name}_w", p["w"])
-            self.register_buffer(f"{name}_b", p["b"])
+            self.register_parameter(f"{name}_w", nn.Parameter(p["w"]))
+            self.register_parameter(f"{name}_b", nn.Parameter(p["b"]))
+        self.requires_grad_(False)
         self.to(resolve_device(device))
+
+    @staticmethod
+    def init_params(seed: int = 0) -> Dict[str, Any]:
+        """Random parameters in the JAX layout, with the JAX package's
+        distributions drawn from a seeded ``torch.Generator`` (other numbers
+        than ``jax.random``'s)."""
+        g = torch.Generator().manual_seed(seed)
+
+        def conv_p(cin, cout, kh=3, kw=3):
+            w = torch.randn((cout, cin, kh, kw), generator=g) * (cin * kh * kw) ** -0.5
+            return {"w": w.numpy(), "b": np.zeros((cout,), np.float32)}
+
+        params: Dict[str, Any] = {}
+        cin = 2  # log-magnitude + frequency coordinate
+        for lvl in range(_LEVELS):
+            params[f"down{lvl}"] = conv_p(cin, _BASE * 2**lvl)
+            cin = _BASE * 2**lvl
+        params["mid"] = conv_p(cin, cin)
+        for lvl in reversed(range(_LEVELS)):
+            cout = _BASE * 2**lvl
+            params[f"up{lvl}"] = conv_p(cin + cout, cout)
+            cin = cout
+        params["head"] = conv_p(cin, 1, 1, 1)
+        return params
+
+    def numpy_params(self) -> Dict[str, Any]:
+        """The parameters in the JAX layout (host numpy), as ``params.npz``
+        holds them."""
+        return {name: {k: getattr(self, f"{name}_{k}").detach().cpu().numpy().copy()
+                       for k in ("w", "b")} for name in self.names}
 
     def _wb(self, name: str):
         return getattr(self, f"{name}_w"), getattr(self, f"{name}_b")
@@ -99,3 +134,20 @@ class MaskUNet(nn.Module):
         vocals = istft(spec * mask, n_fft=_N_FFT, hop=_HOP, length=len(audio))
         music = istft(spec * (1.0 - mask), n_fft=_N_FFT, hop=_HOP, length=len(audio))
         return vocals.cpu().numpy().astype(np.float32), music.cpu().numpy().astype(np.float32)
+
+
+def masking_loss(net: MaskUNet, mix_mag: torch.Tensor, vocal_mag: torch.Tensor) -> torch.Tensor:
+    """L1 between the masked mixture and the target vocal magnitudes."""
+    mask = net(mix_mag)
+    return torch.mean(torch.abs(mask * mix_mag - vocal_mag))
+
+
+def dual_stem_loss(net: MaskUNet, mix_mag: torch.Tensor, vocal_mag: torch.Tensor,
+                   music_mag: torch.Tensor) -> torch.Tensor:
+    """L1 on both stems: ``mask * mix`` against the vocals and ``(1 - mask)
+    * mix`` against the music (the accompaniment term pushes the mask to
+    zero where music dominates)."""
+    mask = net(mix_mag)
+    vocal_term = torch.mean(torch.abs(mask * mix_mag - vocal_mag))
+    music_term = torch.mean(torch.abs((1.0 - mask) * mix_mag - music_mag))
+    return vocal_term + music_term

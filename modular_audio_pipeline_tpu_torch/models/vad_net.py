@@ -103,22 +103,55 @@ class ConvVAD(nn.Module):
 
     @staticmethod
     def features(audio: torch.Tensor) -> torch.Tensor:
-        """[T] -> [n_windows, N_MELS] log10 band energies per 512 samples."""
+        """[..., T] -> [..., n_windows, N_MELS] log10 band energies per 512 samples."""
         n = (audio.shape[-1] // WINDOW_SAMPLES) * WINDOW_SAMPLES
-        frames = audio[:n].reshape(-1, WINDOW_SAMPLES)
-        spec = torch.fft.rfft(frames, dim=-1).abs() ** 2  # [nw, 257]
+        frames = audio[..., :n].reshape(audio.shape[:-1] + (-1, WINDOW_SAMPLES))
+        spec = torch.fft.rfft(frames, dim=-1).abs() ** 2  # [..., nw, 257]
         edges = _band_edges(spec.shape[-1], ConvVAD.N_MELS)
-        bands = [spec[:, lo:hi].sum(dim=-1) for lo, hi in zip(edges[:-1], edges[1:])]
+        bands = [spec[..., lo:hi].sum(dim=-1) for lo, hi in zip(edges[:-1], edges[1:])]
         return torch.log10(torch.stack(bands, dim=-1) + 1e-10)
 
-    def forward(self, feats: torch.Tensor) -> torch.Tensor:
-        """[n_windows, N_MELS] log band energies -> [n_windows] probabilities."""
-        x = feats.T[None]  # [1, C, T]
+    @staticmethod
+    def init_params(seed: int = 0) -> Dict[str, np.ndarray]:
+        """Random parameters in the JAX layout, with the JAX package's
+        distributions drawn from a seeded ``torch.Generator`` (other numbers
+        than ``jax.random``'s)."""
+        g = torch.Generator().manual_seed(seed)
+        h, m = ConvVAD.HIDDEN, ConvVAD.N_MELS
+
+        def conv(cin, cout, width):
+            w = torch.randn((cout, cin, width), generator=g) * (cin * width) ** -0.5
+            return {"w": w.numpy(), "b": np.zeros((cout,), np.float32)}
+
+        return {
+            "conv1": conv(m, h, 3), "conv2": conv(h, h, 3), "conv3": conv(h, h, 3),
+            "head": {"w": (torch.randn((h, 1), generator=g) * h**-0.5).numpy(),
+                     "b": np.zeros((1,), np.float32)},
+        }
+
+    def numpy_params(self) -> Dict[str, Any]:
+        """The parameters in the JAX layout (host numpy), as ``params.npz``
+        holds them: the inverse of ``__init__``."""
+        def host(t):
+            return t.detach().cpu().numpy().copy()
+
+        out = {name: {"w": host(getattr(self, name).weight), "b": host(getattr(self, name).bias)}
+               for name in ("conv1", "conv2", "conv3")}
+        out["head"] = {"w": host(self.head.weight.T), "b": host(self.head.bias)}
+        return out
+
+    def logits(self, feats: torch.Tensor) -> torch.Tensor:
+        """[..., n_windows, N_MELS] log band energies -> [..., n_windows] logits."""
+        lead = feats.shape[:-2]
+        x = feats.reshape((-1,) + feats.shape[-2:]).transpose(1, 2)  # [B, C, T]
         with no_tf32():
             for conv in (self.conv1, self.conv2, self.conv3):
                 x = F.relu(conv(F.pad(x, (2, 0))))  # causal: pad 2 on the left only
-        logits = self.head(x[0].T)  # [T, 1]
-        return torch.sigmoid(logits[:, 0])
+        return self.head(x.transpose(1, 2))[..., 0].reshape(lead + x.shape[-1:])
+
+    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        """[..., n_windows, N_MELS] log band energies -> [..., n_windows] probabilities."""
+        return torch.sigmoid(self.logits(feats))
 
     def speech_probs(self, audio: np.ndarray, sr: int) -> np.ndarray:
         """Host audio -> host probabilities, one per 512-sample window."""

@@ -17,7 +17,8 @@ import torch
 
 from ...exceptions import ModelLoadError
 
-__all__ = ["flatten_tree", "unflatten_tree", "save_params", "load_params", "params_from_numpy"]
+__all__ = ["flatten_tree", "unflatten_tree", "save_params", "load_params", "params_from_numpy",
+           "params_to_numpy", "initial_params"]
 
 
 def flatten_tree(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -95,3 +96,22 @@ def params_from_numpy(
             t = t.float() if k.endswith("_ws") else t.to(dtype)
         out[k] = t.to(device)
     return out
+
+
+def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_numpy`: a tree of tensors (a trained
+    one included) -> the same tree of host numpy arrays, each in its
+    tensor's type, ready for :func:`save_params`."""
+    return {k: params_to_numpy(v) if isinstance(v, dict) else v.detach().cpu().numpy()
+            for k, v in tree.items()}
+
+
+def initial_params(params, init, seed: int) -> Dict[str, Any]:
+    """A trainer's initial parameters: ``params`` as given (a numpy tree in
+    the JAX layout), the ``params.npz`` of a bundle dir when ``params`` is a
+    path, or ``init(seed)`` when it is None."""
+    if params is None:
+        return init(seed)
+    if isinstance(params, (str, Path)):
+        return load_params(str(params))
+    return params

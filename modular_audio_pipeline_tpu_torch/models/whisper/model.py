@@ -360,7 +360,13 @@ def decoder_forward(
         else:
             cache.k[l, :, :, wpos : wpos + s] = k_new
             cache.v[l, :, :, wpos : wpos + s] = v_new
-            y = _attention(q, cache.k[l], cache.v[l], self_mask)
+            k_l, v_l = cache.k[l], cache.v[l]
+            if k_new.requires_grad:
+                # a training step: attend to copies, since the next layer's
+                # write into the shared cache would modify the views that the
+                # backward saved (inference keeps reading the cache itself)
+                k_l, v_l = k_l.clone(), v_l.clone()
+            y = _attention(q, k_l, v_l, self_mask)
         x = resid + _proj(_merge_heads(y), p["attn"], "o")
 
         resid = x

@@ -4,6 +4,18 @@ Counterpart of ``modular_audio_pipeline_tpu/ops/attention.py``. The
 kernel (``csrc/flash_attention.cu``) replaces the Pallas ``_flash_kernel``;
 ``attention_reference`` is its plain PyTorch version, used for tensors on
 the CPU and as the oracle the kernel is held against on the card.
+
+The gradient. On the card, when autograd records (a training step),
+``flash_attention`` goes through :class:`_FlashAttention`: the forward is
+the kernel's launch, and the backward recomputes the attention through
+``attention_reference`` and returns that function's vector-Jacobian
+product for q, k and v. That is the JAX package's ``custom_vjp``
+(``_flash_attention_bwd``), whose backward is XLA einsums outside any
+Pallas kernel: there is no TPU kernel of the backward to port, so the
+plain backward here is the port of that design, not a fallback. The
+recompute holds ``[B, H, S, S]`` f32 logits and probabilities while it
+runs. Under ``no_grad``, or when no input needs a gradient, the kernel
+is launched directly and nothing is saved.
 """
 
 from __future__ import annotations
@@ -76,13 +88,34 @@ def _kernel():
     return fn
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward with the JAX package's recompute backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _flash_launch(q, k, v)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_o):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            grads = iter(torch.autograd.grad(attention_reference(*inputs), wanted, grad_o))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Whisper encoder self-attention ``[B, H, S, D] -> [B, H, S, D]``.
 
     On a CUDA tensor this launches the hand-written kernel on the current
     stream (contiguous bf16 or f32, D of 32 or 64) and raises on anything
     it does not take or on a failed launch; on a CPU tensor it runs
-    :func:`attention_reference`. Forward only.
+    :func:`attention_reference`, which autograd differentiates. On the card
+    the result is differentiable when autograd records: the backward
+    recomputes through :func:`attention_reference` (module docstring).
 
     bf16 at D = 64 (the encoder of every model wider than test-tiny) runs on
     the tensor cores: a pre-pass writes ``k * D^-0.25`` rounded to bf16 into
@@ -92,6 +125,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v)
+    return _flash_launch(q, k, v)
+
+
+def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel on the current stream; counts it."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:

@@ -8,18 +8,18 @@ amplitude modulation, pauses), drawn from a seeded distribution. The same
 seed gives the same samples as the JAX package's. It is the speech the
 shipped ConvVAD, diarization and separation bundles were trained on;
 ``chip_smoke.py`` builds bench config 4's music-contaminated podcast from
-it. The multi-speaker ``synth_conversation`` waits for the training
-slice (ROADMAP.md §A.9).
+it; ``synth_conversation`` builds the multi-speaker scenes the
+diarization trainer calibrates on.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
-__all__ = ["SpeakerVoice", "sample_voice", "synth_utterance"]
+__all__ = ["SpeakerVoice", "sample_voice", "synth_utterance", "synth_conversation"]
 
 SR = 16000
 
@@ -132,3 +132,49 @@ def synth_utterance(
     if peak > 1e-9:
         sig = sig / peak * rng.uniform(0.2, 0.35)
     return sig.astype(np.float32)
+
+
+def synth_conversation(
+    voices: List[SpeakerVoice],
+    turns: List[Tuple[int, float]],
+    rng: np.random.Generator,
+    sr: int = SR,
+    overlap_prob: float = 0.0,
+    max_overlap_s: float = 1.0,
+    noise_level: float = 0.0,
+    gap_s: float = 0.0,
+) -> Tuple[np.ndarray, List[Tuple[str, float, float]]]:
+    """Multi-speaker conversation.
+
+    ``turns``: [(speaker_index, seconds)]. With ``overlap_prob``, a turn
+    may start before the previous one ends (up to ``max_overlap_s``).
+    Returns (audio, truth) with truth entries ``("S<idx>", start, end)``
+    on the output timeline.
+    """
+    total = sum(sec for _, sec in turns) + gap_s * len(turns) + max_overlap_s
+    n_total = int(total * sr) + sr
+    audio = np.zeros(n_total, dtype=np.float32)
+    truth: List[Tuple[str, float, float]] = []
+
+    cursor = 0.0
+    prev_end = 0.0
+    for spk, sec in turns:
+        start = cursor
+        if truth and overlap_prob > 0 and rng.random() < overlap_prob:
+            start = max(0.0, prev_end - rng.uniform(0.2, max_overlap_s))
+        utt = synth_utterance(voices[spk], sec, rng, sr=sr)
+        a = int(start * sr)
+        audio[a : a + len(utt)] += utt
+        end = start + sec
+        truth.append((f"S{spk}", round(start, 3), round(end, 3)))
+        prev_end = end
+        cursor = end + (gap_s if gap_s > 0 else 0.0)
+
+    n_used = int((max(e for _, _, e in truth) + 0.2) * sr)
+    audio = audio[:n_used]
+    if noise_level > 0:
+        audio = audio + noise_level * rng.standard_normal(n_used).astype(np.float32)
+    peak = np.abs(audio).max()
+    if peak > 0.95:
+        audio = audio / peak * 0.95
+    return audio.astype(np.float32), truth

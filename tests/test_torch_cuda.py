@@ -517,3 +517,84 @@ def test_serving_networks_on_card_match_cpu(cuda):
     assert attn_ops.flash_attention.launches == before + SegmentationNet.LAYERS
     ulps = (mg.view(torch.int16).int() - cpu.marginals(mel).view(torch.int16).int()).abs()
     assert ulps.max().item() <= 1
+
+
+# -- training: the flash kernel's gradient and a train step --------------------------------
+
+@pytest.mark.parametrize("shape", [(2, 3, 129, 64), (1, 2, 1500, 32), (2, 4, 1001, 32),
+                                   (2, 20, 1500, 64)])
+def test_flash_gradient_matches_plain(cuda, shape):
+    """On a CUDA tensor that needs a gradient, flash_attention goes through
+    its autograd.Function: one kernel launch forward, and q/k/v gradients
+    from the plain version's recompute, held to the f32 tolerance over the
+    largest gradient."""
+    q, k, v, g = (torch.randn(shape, generator=cuda, device="cuda") for _ in range(4))
+    qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
+    before = attn_ops.flash_attention.launches
+    out = attn_ops.flash_attention(qa, ka, va)
+    assert out.grad_fn is not None and attn_ops.flash_attention.launches == before + 1
+    out.backward(g)
+    assert attn_ops.flash_attention.launches == before + 1  # the backward launches nothing
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    attn_ops.attention_reference(qr, kr, vr).backward(g)
+    for got, want in ((qa.grad, qr.grad), (ka.grad, kr.grad), (va.grad, vr.grad)):
+        assert ((got - want).abs().max() / want.abs().max()).item() <= TOL[torch.float32]
+
+
+def test_flash_saves_nothing_without_autograd(cuda):
+    """Under no_grad, or when no input needs a gradient, the kernel is
+    launched directly: no graph, nothing saved."""
+    q, k, v = (torch.randn((1, 2, 300, 64), generator=cuda, device="cuda", requires_grad=True)
+               for _ in range(3))
+    with torch.no_grad():
+        out = attn_ops.flash_attention(q, k, v)
+    assert out.grad_fn is None and not out.requires_grad
+    out = attn_ops.flash_attention(q.detach(), k.detach(), v.detach())
+    assert out.grad_fn is None
+    only_q = attn_ops.flash_attention(q, k.detach(), v.detach())
+    only_q.sum().backward()
+    assert q.grad is not None and k.grad is None and v.grad is None
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """Two AdamW steps at test-tiny from the shipped bundle, the encoder's
+    attention through the kernel and its recompute backward on the card:
+    losses within 1e-5 relative of the CPU's, every leaf's gradient at step
+    0 within 1e-4 of its norm, parameters after two steps under the Adam
+    sign-flip tolerance (tests/test_torch_training.py)."""
+    from modular_audio_pipeline_tpu_torch.models.whisper.config import WHISPER_DIMS
+    from modular_audio_pipeline_tpu_torch.models.whisper.convert import (
+        load_params, params_from_numpy)
+    from modular_audio_pipeline_tpu_torch.training import optim
+    from modular_audio_pipeline_tpu_torch.training import whisper_train as wt
+    from modular_audio_pipeline_tpu_torch.utils import SHIPPED_WEIGHTS
+
+    dims = WHISPER_DIMS["test-tiny"]
+    tree = load_params(str(SHIPPED_WEIGHTS / "whisper-test-tiny"))
+    rng = np.random.default_rng(3)
+    mel = torch.from_numpy(rng.standard_normal((2, dims.n_mels, 3000)).astype(np.float32))
+    tokens = torch.from_numpy(rng.integers(0, 300, (2, 24))).long()
+    targets = torch.roll(tokens, -1, 1)
+    targets[:, :3] = wt.IGNORE_INDEX
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = params_from_numpy(tree, dev, torch.float32)
+        init_state, step = wt.make_train_step(dims, optim.adamw(1e-3, weight_decay=0.01))
+        state = init_state(params)
+        batch = [t.to(dev) for t in (mel, tokens, targets)]
+        before = attn_ops.flash_attention.launches
+        state, loss0 = step(state, *batch)
+        grads = [p.grad.cpu() for p in wt.tree_leaves(state.params)]
+        state, loss1 = step(state, *batch)
+        launched = attn_ops.flash_attention.launches - before
+        runs[dev] = (float(loss0), float(loss1), grads,
+                     [p.detach().cpu() for p in wt.tree_leaves(state.params)], launched)
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert card[4] == 2 * dims.n_audio_layer and cpu[4] == 0
+    for i in (0, 1):
+        assert abs(card[i] - cpu[i]) <= 1e-5 * abs(cpu[i])
+    for g, h in zip(card[2], cpu[2]):
+        assert (g - h).norm() <= 1e-4 * max(h.norm().item(), 1e-12)
+    diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(card[3], cpu[3])])
+    assert diffs.max().item() <= 2 * 1e-3 * 2
+    assert (diffs <= 1e-3 * 1e-3 * 2).float().mean().item() >= 0.999

@@ -150,7 +150,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "pkg.WhisperTranscriber, pkg.ServingPipeline\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m.split('.')[0] in ('jaxlib', 'modular_audio_pipeline_tpu'))\n"
-        "assert len(names) >= 66, names\n"
+        "assert len(names) >= 74, names\n"
         "assert {'serving', 'diarizer', 'vad', 'models.vad_net', 'models.diarization.segmentation',\n"
         "        'models.diarization.embedding', 'separator', 'ops.music', 'models.separation',\n"
         "        'models.separation.repet', 'models.separation.unet', 'models.silero_convert',\n"
@@ -158,7 +158,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'runtime.native_lib', 'runtime.prefetch', 'ops.dynamics', 'ops.silence',\n"
         "        'ops.loudness', 'audio_io', 'protocols', 'exceptions', 'streaming',\n"
         "        'post_processing', 'post_processing_hybrid', 'models.lm', 'models.lm.llama',\n"
-        "        'evaluation', 'evaluation.metrics',\n"
+        "        'evaluation', 'evaluation.metrics', 'training', 'training.optim',\n"
+        "        'training.whisper_train', 'training.data', 'training.train', 'training.voices',\n"
+        "        'training.synth_asr', 'training.vad', 'training.diarization',\n"
+        "        'training.separation',\n"
         "        } <= {n.split('.', 1)[1] for n in names}, names\n"
         "pkg.AudioPipeline, pkg.BatchDriver, pkg.FasterWhisperTranscriber\n"
         "for name in pkg.__all__: getattr(pkg, name)\n"
