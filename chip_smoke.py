@@ -18,8 +18,9 @@ Phases (any failure exits non-zero and prints no result line):
    the plain version's and ``scaled_dot_product_attention``'s times (the
    latter only as a yardstick; the port never calls it) beside its three
    bounds (tensor-core operations, exponentials, bytes). Then the kernel's
-   SIMT route in f32 at head dim 32, where SegmentationNet calls it: at
-   [32, 4, 1000, 32] and a ragged [2, 4, 1001, 32] within ``FLASH_TOL_F32``
+   CUDA-core route in f32: at the edges of its 128-query tile ([1, 3, 127,
+   32], [1, 3, 129, 64]), and at head dim 32 where SegmentationNet calls it,
+   [32, 4, 1000, 32] and a ragged [2, 4, 1001, 32], within ``FLASH_TOL_F32``
    with equal bits twice, and timed at a 512-window chunk [512, 4, 1000,
    32] beside the plain version and ``scaled_dot_product_attention`` in
    f32, against a bound from the f32 CUDA-core peak.
@@ -325,9 +326,10 @@ SEG_SHAPE = (512, 4, 1000, 32)  # SegmentationNet: a chunk of 512 windows, 4 hea
 
 
 def phase_flash_segmentation(torch, check):
-    """The kernel's SIMT route in f32 at head dim 32, where SegmentationNet
-    calls it: against the plain version at a 32-window chunk and at a ragged
-    sequence length, equal bits twice; timed at a 512-window chunk beside
+    """The kernel's CUDA-core route in f32: against the plain version at
+    the edges of its 128-query tile, and at head dim 32, where
+    SegmentationNet calls it, at a 32-window chunk and at a ragged sequence
+    length, equal bits twice; timed at a 512-window chunk beside
     the plain version and ``scaled_dot_product_attention`` in f32. Its
     bound takes the f32 CUDA-core peak (TF32 would change the arithmetic
     the JAX package does), the exponentials and the bytes."""
@@ -335,6 +337,8 @@ def phase_flash_segmentation(torch, check):
 
     from modular_audio_pipeline_tpu_torch.ops.attention import attention_reference, flash_attention
 
+    check((1, 3, 127, 32), torch.float32, FLASH_TOL_F32)
+    check((1, 3, 129, 64), torch.float32, FLASH_TOL_F32)
     check((32, 4, 1000, 32), torch.float32, FLASH_TOL_F32)
     check((2, 4, 1001, 32), torch.float32, FLASH_TOL_F32)
     q, k, v, err = check(SEG_SHAPE, torch.float32, FLASH_TOL_F32)
@@ -906,7 +910,7 @@ def device_breakdown(torch, fn, label: str, top: int = 8):
     for name, ms, n in rows[:top]:
         log(f"  device {ms:9.1f} ms  x{n:<6d} {name[:90]}")
     mine = {}
-    for kernel in ("flash_fwd_tc", "flash_fwd_simt", "scale_rows", "ancestor_attention_kernel",
+    for kernel in ("flash_fwd_tc", "flash_fwd_fma", "scale_rows", "ancestor_attention_kernel",
                    "int8_matmul_decode",
                    "int8_matmul_wide", "int8_matmul_generic", "int8_matmul"):
         hits = [(ms, n) for name, ms, n in rows if kernel in name]
@@ -1232,7 +1236,7 @@ def phase_serving(torch, tmp: Path, seconds: float):
                       "kept_duration": result["kept_duration"], "decode_stats": ds,
                       "segments": len(result["segments"]), "turns": len(result["diarization"]),
                       "host_s_by_stage": stages, "device_busy_share": busy,
-                      "top_kernels_ms": top, "flash_simt_ms": mine["flash_fwd_simt"][0],
+                      "top_kernels_ms": top, "flash_fma_ms": mine["flash_fwd_fma"][0],
                       "run_file_segments": len(doc["segments"]), "proxy": proxy}
 
 
@@ -2419,7 +2423,7 @@ def train_whisper(torch, tmp: Path) -> tuple:
 
 
 def flash_training_shape(torch) -> dict:
-    """Phase 10c, and the kernel at the training shape: the f32 SIMT route
+    """Phase 10c, and the kernel at the training shape: the f32 CUDA-core route
     at [8, 20, 1500, 64] against its plain version, timed beside
     ``scaled_dot_product_attention`` in f32 and its f32 bound; the backward
     recompute's time; the autograd.Function's q/k/v gradients against

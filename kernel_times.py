@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Device times of the port's kernels, for comparing two trees.
 
-    python3 kernel_times.py [ROOT] [--e2e]
+    python3 kernel_times.py [ROOT] [--e2e] [--fma-shapes]
 
 imports ``modular_audio_pipeline_tpu_torch`` from ROOT (default: this
 file's directory), builds its kernels and prints one JSON line with the
 flash kernel's time at the large-v3-turbo encoder shape (bf16, the
-tensor-core route) and at SegmentationNet's (f32 [512, 4, 1000, 32], a
-512-window chunk, the SIMT route), the ancestry
+tensor-core route), at SegmentationNet's (f32 [512, 4, 1000, 32], a
+512-window chunk) and at the turbo encoder's training shape (f32 [8, 20,
+1500, 64], batch 8), the last two on the f32 route, the ancestry
 kernel's at the decode shape (16 windows x 5 beams x 20 heads, int8
 cache), at a 448 and a 64 context bucket, with random and with shared
 ancestry, and the int8 product's at the five main-path shapes and at 16
@@ -31,7 +32,13 @@ built through ``from_config`` with ``compute_type="int8"`` and
 ``word_timestamps=True`` transcribes the same 8 minutes of audio, and
 so does the same model in bf16 as the control (it runs no int8 product):
 one warm-up run each, then three timed runs each in turns (wall and
-word-alignment seconds of every run). It uses only calls
+word-alignment seconds of every run). ``--fma-shapes`` builds the flash
+kernel's CUDA-core route (``launch_fma`` in ROOT's
+``csrc/flash_attention.cu``; a tree without it is skipped) at each
+register-tile shape of ``FMA_SHAPES`` through a small shim compiled into
+ROOT's ``_build/``, checks each against the plain version and times it at
+the f32 shape of its head dim, as ``fma_<shape>_ms`` and its registers and
+spill bytes from the ptxas log. It uses only calls
 that every version of the port since the int8 kernel has, so the same
 script times a checkout of an earlier commit unpacked elsewhere: run both
 in one job on one card and compare within that job.
@@ -47,6 +54,7 @@ HERE = Path(__file__).resolve().parent
 ARGS = [a for a in sys.argv[1:] if not a.startswith("--")]
 ROOT = Path(ARGS[0]).resolve() if ARGS else HERE
 E2E = "--e2e" in sys.argv[1:]
+FMA = "--fma-shapes" in sys.argv[1:]
 sys.path.insert(0, str(ROOT))
 
 
@@ -55,6 +63,27 @@ sys.path.insert(0, str(ROOT))
 INT8_SHAPES = [(80, 1280, 1280), (80, 1280, 5120), (80, 5120, 1280), (80, 1280, 51968),
                (24000, 1280, 1280), (16, 1280, 1280)]
 L2_BYTES = 50e6
+# register-tile shapes of the flash kernel's CUDA-core route: (type, head
+# dim, queries a block, queries x keys a thread, blocks an SM for the
+# register budget), and the f32 shape each head dim is timed at
+FMA_SHAPES = {
+    "f32_hd32_64q_4x4": ("float", 32, 64, 4, 4, 2),
+    "f32_hd32_64q_4x8": ("float", 32, 64, 4, 8, 3),
+    "f32_hd32_128q_4x8": ("float", 32, 128, 4, 8, 2),
+    "f32_hd32_128q_8x8": ("float", 32, 128, 8, 8, 2),
+    "f32_hd64_64q_4x4": ("float", 64, 64, 4, 4, 2),
+    "f32_hd64_64q_8x4": ("float", 64, 64, 8, 4, 2),
+    "f32_hd64_128q_4x4": ("float", 64, 128, 4, 4, 1),
+    "f32_hd64_128q_8x4": ("float", 64, 128, 8, 4, 1),
+}
+FMA_AT = {32: (512, 4, 1000, 32), 64: (8, 20, 1500, 64)}
+FMA_SHIM = """#include "flash_attention.cu"
+extern "C" int fma_shape(const void* q, const void* k, const void* v, void* o, int bh, int s,
+                         float scale, void* stream) {
+  return launch_fma<CFG_T, CFG_HD, CFG_BQ, CFG_TQ, CFG_TK, CFG_MB>(
+      q, k, v, o, bh, s, scale, static_cast<cudaStream_t>(stream));
+}
+"""
 
 
 def graph_ms(torch, fn, calls: int = 8, reps: int = 10) -> float:
@@ -169,6 +198,66 @@ def device_launches(torch, fn) -> int:
                if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
+def fma_shapes(torch, out: dict) -> None:
+    """The CUDA-core route at each shape of FMA_SHAPES: built in parallel,
+    held to the plain version (1e-4, f32) at ragged lengths, timed."""
+    import ctypes
+    import re
+    import subprocess
+
+    from modular_audio_pipeline_tpu_torch.ops import _build
+    from modular_audio_pipeline_tpu_torch.ops.attention import attention_reference
+
+    if "launch_fma" not in (_build.CSRC / "flash_attention.cu").read_text():
+        log("fma shapes: this tree has no launch_fma, skipped")
+        return
+    work = _build.BUILD_DIR / "fma_shapes"
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "shim.cu").write_text(FMA_SHIM)
+    procs = {}
+    for name, (t, hd, bq, tq, tk, mb) in FMA_SHAPES.items():
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), f"-DCFG_T={t}",
+               f"-DCFG_HD={hd}", f"-DCFG_BQ={bq}", f"-DCFG_TQ={tq}", f"-DCFG_TK={tk}",
+               f"-DCFG_MB={mb}", "-o", str(work / f"lib{name}.so"), str(work / "shim.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for name, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"fma shape {name}: nvcc failed\n{text[-3000:]}")
+        t, hd, bq, tq, tk, mb = FMA_SHAPES[name]
+        tag = f"flash_fwd_fmaIfLi{hd}ELi{bq}ELi{tq}ELi{tk}ELi{mb}E"
+        tail = text[text.index(tag):] if tag in text else ""
+        regs = re.search(r"Used (\d+) registers", tail)
+        spills = re.search(r"(\d+) bytes spill stores", tail)
+        fn = ctypes.CDLL(str(work / f"lib{name}.so")).fma_shape
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
+
+        def run(q, k, v, fn=fn):
+            o = torch.empty_like(q)
+            b, h, s, d = q.shape
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, s, d ** -0.25,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"fma shape {name}: cudaError {rc}")
+            return o
+
+        for shape in [(1, 3, 63, hd), (1, 3, 129, hd), (2, 2, 1001, hd)]:
+            q, k, v = (torch.randn(shape, generator=g, device="cuda") for _ in range(3))
+            err = (run(q, k, v) - attention_reference(q, k, v)).abs().max().item()
+            if not err <= 1e-4:
+                raise AssertionError(f"fma shape {name} at {shape}: err {err}")
+        q, k, v = (torch.randn(FMA_AT[hd], generator=g, device="cuda") for _ in range(3))
+        out[f"fma_{name}_ms"] = graph_ms(torch, lambda: run(q, k, v), calls=2, reps=3)
+        out[f"fma_{name}_registers"] = int(regs.group(1)) if regs else None
+        out[f"fma_{name}_spill_bytes"] = int(spills.group(1)) if spills else None
+        log(f"fma {name} at {FMA_AT[hd]}: {out[f'fma_{name}_ms']:.3f} ms, "
+            f"{out[f'fma_{name}_registers']} registers, {out[f'fma_{name}_spill_bytes']} spill bytes")
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -192,6 +281,12 @@ def main() -> int:
     out["flash_segmentation_f32_ms"] = graph_ms(torch, lambda: flash_attention(q, k, v),
                                                 calls=2, reps=3)
     del q, k, v
+    q, k, v = (torch.randn((8, 20, 1500, 64), generator=g, device="cuda") for _ in range(3))
+    out["flash_training_f32_ms"] = graph_ms(torch, lambda: flash_attention(q, k, v),
+                                            calls=2, reps=3)
+    del q, k, v
+    if FMA:
+        fma_shapes(torch, out)
 
     bw, kq, h, hd, layers, layer = 16, 5, 20, 64, 2, 1
     for ctx in (448, 64):

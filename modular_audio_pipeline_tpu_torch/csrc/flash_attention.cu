@@ -56,120 +56,57 @@
 // is loaded and O stored by plain predicated accesses, so a tail tile never
 // touches the next head's rows.
 //
-// f32 inputs and D = 32 take `flash_fwd_simt`, the earlier kernel: one thread
-// per query row, f32 FMAs, K/V tiles of 32 keys through shared memory. It is
-// off the main path (large-v3-turbo runs bf16 at D = 64).
+// f32 inputs, and bf16 at D = 32, take `flash_fwd_fma` on the CUDA cores.
+// It is on the serving path (SegmentationNet, f32 at D = 32, [512, 4, 1000,
+// 32] per 512-window chunk) and on the training path (the Whisper encoder in
+// f32, [8, 20, 1500, 64] at batch 8, 32 launches a step). Its products stay
+// f32 FMAs: TF32 would change the JAX package's f32 arithmetic. At the
+// segmentation shape 2.62e11 operations take 3.91 ms at the 67 TFLOP/s of
+// the f32 CUDA cores, the exponentials 0.49 ms and the bytes 0.31 ms, so it
+// is bound by operations, and what keeps the FMA pipes from their rate is
+// the shared-memory loads that feed them: with one thread per query, each
+// K or V value read from shared memory feeds one FMA, and a thread holds
+// q, the accumulator and the scores at once (241 registers at D = 64).
+//
+// Design (`flash_fwd_fma`, FmaTile below). One block per (batch*head, tile of
+// BQ = 128 queries). Each thread owns a register tile: TQ = 8 queries x TK
+// keys of a 64-key score tile (TK = 8 at D = 32, 4 at D = 64) and the same 8
+// queries x D/(64/TK) columns of the output, so each 16-byte load from shared
+// memory feeds 11-16 FMAs (4 with one thread per query). The 64/TK threads
+// that share a query row sit in one warp; the row max and the running sum's
+// rescale factor come from __shfl_xor_sync among them, and the rounded
+// unnormalised probabilities go through a [128][64 + pad] f32 tile in shared
+// memory to the threads that own the output columns (the same threads, so the
+// factors stay in registers). Q, K and V tiles are copied by `cp.async` (16
+// bytes, rows past S zero-filled and never read); the next K/V tile is issued
+// as soon as the current one is whole, into the other of two buffers, so its
+// load overlaps this tile's arithmetic. Q and each K tile are scaled and
+// rounded once in shared memory by the thread that copied them (bf16 lands in
+// a staging area and is widened there). Rows of Q, K and V are padded to an
+// odd number of 16-byte units, so float4 loads of neighbouring rows fall on
+// distinct banks. Keys past S are set to -inf before the row max, and queries
+// past S are not stored. Two syncs a tile: one when the tile is whole, one
+// when P is.
+//
+// The tile shape was measured, not derived (`kernel_times.py --fma-shapes`
+// times the candidates side by side): 128 x 8 x 8 (128 threads, 254
+// registers, no spills, two blocks an SM) at D = 32 and 128 x 8 x 4 (256
+// threads, 200 registers, one block an SM) at D = 64 beat 64 queries in
+// 4 x 4 register tiles (256 threads, 122-128 registers, two blocks an SM)
+// at both shapes: fewer shared-memory loads per FMA outweigh fewer warps.
 //
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W, [16, 20, 1500, 64] bf16, by
 // chip_smoke.py: 0.537 ms a launch with the pre-pass (10.63 ms before this
 // design), `scaled_dot_product_attention` 0.497 ms; PERF.md section 6 has
-// what separates the two.
+// what separates the two. The CUDA-core route, by kernel_times.py beside a
+// checkout with one thread per query: [512, 4, 1000, 32] f32 7.22-7.27 ms
+// (10.37-10.44 ms), [8, 20, 1500, 64] f32 2.65-2.66 ms (4.31 ms).
 
 #include "common.cuh"
 
 #include <cuda.h>  // CUtensorMap and its enums; the encode function is fetched at run time
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// SIMT kernel: f32 inputs, and bf16 at head dim 32
-// ---------------------------------------------------------------------------
-
-constexpr int kBlockQ = 128;  // queries per block, one per thread
-constexpr int kTileK = 32;    // keys per shared-memory tile
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kBlockQ)
-flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               T* __restrict__ o, int S, float scale) {
-  __shared__ __align__(16) float ks[kTileK][HD];
-  __shared__ __align__(16) float vs[kTileK][HD];
-
-  const size_t base = static_cast<size_t>(blockIdx.y) * S * HD;
-  const int qi = blockIdx.x * kBlockQ + threadIdx.x;
-  const bool active = qi < S;
-
-  float qr[HD];
-  float acc[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    qr[d] = active ? round_as<T>(to_float(q[base + static_cast<size_t>(qi) * HD + d]) * scale)
-                   : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = -INFINITY;  // running max
-  float l = 0.f;        // running sum of exp(s - m)
-
-  for (int k0 = 0; k0 < S; k0 += kTileK) {
-    for (int e = threadIdx.x; e < kTileK * HD; e += kBlockQ) {
-      const int j = e / HD;
-      const int d = e - j * HD;
-      float kv = 0.f, vv = 0.f;
-      if (k0 + j < S) {
-        const size_t off = base + static_cast<size_t>(k0 + j) * HD + d;
-        kv = round_as<T>(to_float(k[off]) * scale);
-        vv = to_float(v[off]);
-      }
-      ks[j][d] = kv;
-      vs[j][d] = vv;
-    }
-    __syncthreads();
-
-    float s[kTileK];
-    float m_new = m;
-#pragma unroll
-    for (int j = 0; j < kTileK; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; d += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(&ks[j][d]);
-        dot = fmaf(qr[d], kk.x, dot);
-        dot = fmaf(qr[d + 1], kk.y, dot);
-        dot = fmaf(qr[d + 2], kk.z, dot);
-        dot = fmaf(qr[d + 3], kk.w, dot);
-      }
-      s[j] = (k0 + j < S) ? dot : -INFINITY;  // ragged key edge
-      m_new = fmaxf(m_new, s[j]);
-    }
-    // The first tile always holds a valid key, so m_new is finite and
-    // exp(-inf - m_new) = 0 clears the empty initial state.
-    const float corr = __expf(m - m_new);
-    l *= corr;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] *= corr;
-#pragma unroll
-    for (int j = 0; j < kTileK; ++j) {
-      const float p = __expf(s[j] - m_new);
-      l += p;
-#pragma unroll
-      for (int d = 0; d < HD; d += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(&vs[j][d]);
-        acc[d] = fmaf(p, vv.x, acc[d]);
-        acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
-        acc[d + 2] = fmaf(p, vv.z, acc[d + 2]);
-        acc[d + 3] = fmaf(p, vv.w, acc[d + 3]);
-      }
-    }
-    m = m_new;
-    __syncthreads();
-  }
-
-  if (active) {
-    T* out = o + base + static_cast<size_t>(qi) * HD;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) out[d] = from_float<T>(acc[d] / l);
-  }
-}
-
-template <typename T, int HD>
-int launch_simt(const void* q, const void* k, const void* v, void* o, int bh, int s, float scale,
-                cudaStream_t stream) {
-  const dim3 grid((s + kBlockQ - 1) / kBlockQ, bh);
-  flash_fwd_simt<T, HD><<<grid, kBlockQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), s, scale);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---------------------------------------------------------------------------
 // Tensor-core kernel: bf16, head dim 64
@@ -570,13 +507,336 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, void* k_scal
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// CUDA-core kernel: f32 inputs, and bf16 at head dim 32
+// ---------------------------------------------------------------------------
+
+constexpr int kFmaKeys = 64;  // keys per K/V tile
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(reinterpret_cast<uint64_t>(src)),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The block's shape: BQ queries against 64-key tiles; each thread holds a
+// register tile of TQ queries x TK keys of the scores and TQ queries x kCols
+// columns of the output, and the kLanes threads that share a query row sit
+// in one warp. Shared memory, in floats: Q [BQ][kRow], K and V [2][64][kRow]
+// (two tiles), P [BQ][kProw]; bf16 adds a staging area where its copies
+// land before they are widened.
+template <typename T, int HD, int BQ, int TQ, int TK>
+struct FmaTile {
+  static constexpr int kLanes = kFmaKeys / TK;
+  static constexpr int kGroups = BQ / TQ;  // a thread's query rows: group + i * kGroups
+  static constexpr int kThreads = kGroups * kLanes;
+  static constexpr int kCols = HD / kLanes;
+  static constexpr int kRow = HD + 4;  // odd in 16-byte units: neighbouring rows on other banks
+  static constexpr int kProw = kFmaKeys + kLanes;
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // elements of one copy
+  static constexpr bool kWiden = sizeof(T) != 4;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + BQ * kRow;
+  static constexpr int kV = kK + 2 * kFmaKeys * kRow;
+  static constexpr int kP = kV + 2 * kFmaKeys * kRow;
+  static constexpr int kStage = kP + BQ * kProw;
+  static constexpr int kStageFloats =
+      kWiden ? (BQ + 4 * kFmaKeys) * HD * static_cast<int>(sizeof(T)) / 4 : 0;
+  static constexpr int kSmem = (kStage + kStageFloats) * 4;
+  static_assert(kThreads % 32 == 0 && 32 % kLanes == 0, "a row's threads share one warp");
+  static_assert(kCols == 2 || kCols % 4 == 0, "output columns in float2 or float4");
+  static_assert((BQ * HD / kVec) % kThreads == 0 && (kFmaKeys * HD / kVec) % kThreads == 0,
+                "whole copies per thread");
+};
+
+// `rows` rows of a [S, HD] head from row r0 into shared memory at `dst`
+// (rows `row_bytes` apart), 16 bytes a copy; rows past S are zero-filled
+// and read nothing.
+template <class C, typename T, int HD>
+__device__ __forceinline__ void fma_copy(uint32_t dst, int row_bytes, const T* __restrict__ src,
+                                         int r0, int rows, int S) {
+  constexpr int kPerRow = HD / C::kVec;
+#pragma unroll
+  for (int e = threadIdx.x; e < rows * kPerRow; e += C::kThreads) {
+    const int r = e / kPerRow, c = e - r * kPerRow;
+    const bool in = r0 + r < S;
+    const T* g = src + static_cast<size_t>(in ? r0 + r : 0) * HD + c * C::kVec;
+    cp_async16(dst + r * row_bytes + c * 16, g, in ? 16u : 0u);
+  }
+}
+
+// The thread's own copies made ready: times `scale` and rounded to T when
+// `scaled` (q and k), widened from the staging area for bf16. A thread
+// touches only what it copied itself, so its own wait is enough.
+template <class C, typename T, int HD>
+__device__ __forceinline__ void fma_ready(float* dst, const T* raw, int rows, bool scaled,
+                                          float scale) {
+  constexpr int kPerRow = HD / C::kVec;
+#pragma unroll
+  for (int e = threadIdx.x; e < rows * kPerRow; e += C::kThreads) {
+    const int r = e / kPerRow, c = e - r * kPerRow;
+    float4* out = reinterpret_cast<float4*>(dst + r * C::kRow + c * C::kVec);
+    if constexpr (!C::kWiden) {
+      if (scaled) {
+        float4 x = *out;
+        x.x *= scale, x.y *= scale, x.z *= scale, x.w *= scale;
+        *out = x;
+      }
+    } else {
+      const uint4 w = *reinterpret_cast<const uint4*>(raw + r * HD + c * C::kVec);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+      float f[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        f[2 * j] = __bfloat162float(h[j].x);
+        f[2 * j + 1] = __bfloat162float(h[j].y);
+      }
+      if (scaled) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) f[j] = round_as<T>(f[j] * scale);
+      }
+      out[0] = make_float4(f[0], f[1], f[2], f[3]);
+      out[1] = make_float4(f[4], f[5], f[6], f[7]);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_cols(float (&x)[N], const float* p) {
+  if constexpr (N == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    x[0] = a.x, x[1] = a.y;
+  } else {
+#pragma unroll
+    for (int c = 0; c < N; c += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(p + c);
+      x[c] = a.x, x[c + 1] = a.y, x[c + 2] = a.z, x[c + 3] = a.w;
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_cols(float* out, const float (&x)[N], float inv) {
+  if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(out) = make_float2(x[0] * inv, x[1] * inv);
+  } else {
+#pragma unroll
+    for (int c = 0; c < N; c += 4) {
+      *reinterpret_cast<float4*>(out + c) =
+          make_float4(x[c] * inv, x[c + 1] * inv, x[c + 2] * inv, x[c + 3] * inv);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_cols(__nv_bfloat16* out, const float (&x)[N], float inv) {
+#pragma unroll
+  for (int c = 0; c < N; c += 2) {
+    *reinterpret_cast<__nv_bfloat162*>(out + c) =
+        __floats2bfloat162_rn(x[c] * inv, x[c + 1] * inv);
+  }
+}
+
+__device__ __forceinline__ float part(const float4& x, int u) {
+  return u == 0 ? x.x : u == 1 ? x.y : u == 2 ? x.z : x.w;
+}
+
+// q, k, v, o: [B*H, S, HD] of T, 16-byte aligned. grid (ceil(S / BQ), B*H).
+// MIN_BLOCKS: the blocks an SM must hold, which caps the registers a thread.
+template <typename T, int HD, int BQ, int TQ, int TK, int MIN_BLOCKS>
+__global__ void __launch_bounds__(FmaTile<T, HD, BQ, TQ, TK>::kThreads, MIN_BLOCKS)
+flash_fwd_fma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              T* __restrict__ o, int S, float scale) {
+  using C = FmaTile<T, HD, BQ, TQ, TK>;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem + C::kQ;
+  float* ps = smem + C::kP;
+  T* stage = reinterpret_cast<T*>(smem + C::kStage);  // bf16: Q, then K and V of two tiles
+  const auto k_buf = [&](int b) { return smem + C::kK + b * kFmaKeys * C::kRow; };
+  const auto v_buf = [&](int b) { return smem + C::kV + b * kFmaKeys * C::kRow; };
+  const auto k_raw = [&](int b) { return stage + (BQ + 2 * b * kFmaKeys) * HD; };
+  const auto v_raw = [&](int b) { return k_raw(b) + kFmaKeys * HD; };
+
+  const size_t base = static_cast<size_t>(blockIdx.y) * S * HD;
+  const int q0 = blockIdx.x * BQ;
+  const int n_tiles = (S + kFmaKeys - 1) / kFmaKeys;
+  const int tail = S - (n_tiles - 1) * kFmaKeys;  // keys of the last tile
+  const int lane = threadIdx.x % C::kLanes;  // keys lane + j * kLanes, columns from lane * kCols
+  const int group = threadIdx.x / C::kLanes;
+
+  // Tile n of K and V into buffer n & 1 (bf16: into its staging area).
+  const auto load_tile = [&](int n) {
+    const int b = n & 1;
+    if constexpr (C::kWiden) {
+      fma_copy<C, T, HD>(smem_u32(k_raw(b)), HD * sizeof(T), k + base, n * kFmaKeys, kFmaKeys, S);
+      fma_copy<C, T, HD>(smem_u32(v_raw(b)), HD * sizeof(T), v + base, n * kFmaKeys, kFmaKeys, S);
+    } else {
+      fma_copy<C, T, HD>(smem_u32(k_buf(b)), C::kRow * 4, k + base, n * kFmaKeys, kFmaKeys, S);
+      fma_copy<C, T, HD>(smem_u32(v_buf(b)), C::kRow * 4, v + base, n * kFmaKeys, kFmaKeys, S);
+    }
+    cp_async_commit();
+  };
+  if constexpr (C::kWiden) {
+    fma_copy<C, T, HD>(smem_u32(stage), HD * sizeof(T), q + base, q0, BQ, S);
+  } else {
+    fma_copy<C, T, HD>(smem_u32(qs), C::kRow * 4, q + base, q0, BQ, S);
+  }
+  load_tile(0);
+
+  float acc[TQ][C::kCols];
+  float m[TQ], l[TQ];  // each row's running max; this thread's share of its running sum
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C::kCols; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int n = 0; n < n_tiles; ++n) {
+    const int b = n & 1;
+    const float* kb = k_buf(b);
+    const float* vb = v_buf(b);
+    cp_async_wait_all();
+    if (n == 0) fma_ready<C, T, HD>(qs, stage, BQ, true, scale);
+    fma_ready<C, T, HD>(k_buf(b), k_raw(b), kFmaKeys, true, scale);
+    if constexpr (C::kWiden) fma_ready<C, T, HD>(v_buf(b), v_raw(b), kFmaKeys, false, 1.f);
+    __syncthreads();  // tile n is whole, and every thread has left tile n - 1
+    if (n + 1 < n_tiles) load_tile(n + 1);  // lands while this tile is computed
+
+    // s[i][j] = q row (group + i * kGroups) . k row (lane + j * kLanes)
+    float s[TQ][TK];
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) {
+#pragma unroll
+      for (int j = 0; j < TK; ++j) s[i][j] = 0.f;
+    }
+#pragma unroll
+    for (int d = 0; d < HD; d += 4) {
+      float4 qv[TQ];
+#pragma unroll
+      for (int i = 0; i < TQ; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (group + i * C::kGroups) * C::kRow + d);
+#pragma unroll
+      for (int j = 0; j < TK; ++j) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(kb + (lane + j * C::kLanes) * C::kRow + d);
+#pragma unroll
+        for (int i = 0; i < TQ; ++i) {
+          s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+        }
+      }
+    }
+    if (n == n_tiles - 1 && tail < kFmaKeys) {  // keys past S
+#pragma unroll
+      for (int j = 0; j < TK; ++j) {
+        if (lane + j * C::kLanes >= tail) {
+#pragma unroll
+          for (int i = 0; i < TQ; ++i) s[i][j] = -INFINITY;
+        }
+      }
+    }
+
+    // Online softmax. The row max is taken over the row's kLanes threads;
+    // every tile holds a valid key, so it is finite, and the first tile's
+    // factor is exp2(-inf) = 0 on the empty state.
+    float corr[TQ];
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < TK; ++j) mx = fmaxf(mx, s[i][j]);
+#pragma unroll
+      for (int off = C::kLanes / 2; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      corr[i] = fast_exp2((m[i] - mx) * kLog2e);
+      m[i] = mx;
+      const float ms = mx * kLog2e;
+      float sum = 0.f;
+      float* prow = ps + (group + i * C::kGroups) * C::kProw + lane;
+#pragma unroll
+      for (int j = 0; j < TK; ++j) {
+        const float p = fast_exp2(fmaf(s[i][j], kLog2e, -ms));
+        sum += p;
+        prow[j * C::kLanes] = round_as<T>(p);  // unnormalised, rounded to T before P V
+      }
+      l[i] = fmaf(l[i], corr[i], sum);
+    }
+    __syncthreads();  // P is whole
+
+    // O = O * corr + P V, four keys at a time
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) {
+#pragma unroll
+      for (int c = 0; c < C::kCols; ++c) acc[i][c] *= corr[i];
+    }
+#pragma unroll
+    for (int j = 0; j < kFmaKeys; j += 4) {
+      float4 pv[TQ];
+#pragma unroll
+      for (int i = 0; i < TQ; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(ps + (group + i * C::kGroups) * C::kProw + j);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float vv[C::kCols];
+        load_cols(vv, vb + (j + u) * C::kRow + lane * C::kCols);
+#pragma unroll
+        for (int i = 0; i < TQ; ++i) {
+          const float p = part(pv[i], u);
+#pragma unroll
+          for (int c = 0; c < C::kCols; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+#pragma unroll
+    for (int off = C::kLanes / 2; off > 0; off >>= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int row = q0 + group + i * C::kGroups;
+    if (row < S)
+      store_cols(o + base + static_cast<size_t>(row) * HD + lane * C::kCols, acc[i], 1.f / l[i]);
+  }
+}
+
+template <typename T, int HD, int BQ, int TQ, int TK, int MIN_BLOCKS>
+int launch_fma(const void* q, const void* k, const void* v, void* o, int bh, int s, float scale,
+               cudaStream_t stream) {
+  using C = FmaTile<T, HD, BQ, TQ, TK>;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  if (align & 15) return static_cast<int>(cudaErrorMisalignedAddress);
+  const auto kernel = flash_fwd_fma<T, HD, BQ, TQ, TK, MIN_BLOCKS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((s + BQ - 1) / BQ, bh);
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(static_cast<const T*>(q),
+                                                  static_cast<const T*>(k),
+                                                  static_cast<const T*>(v), static_cast<T*>(o), s,
+                                                  scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// q, k, v, o: contiguous [bh, s, hd] of `dtype` (kF32 or kBF16); hd 32 or 64.
-// bf16 at hd 64 runs on the tensor cores and needs `k_scaled`, scratch of k's
-// size and type (16-byte aligned, as q, k, v and o must be); every other case
-// takes the SIMT kernel and ignores it. Launches on `stream` and returns the
-// cudaError_t of the launch.
+// q, k, v, o: contiguous [bh, s, hd] of `dtype` (kF32 or kBF16), 16-byte
+// aligned; hd 32 or 64. bf16 at hd 64 runs on the tensor cores and needs
+// `k_scaled`, scratch of k's size and type (16-byte aligned too); every other
+// case takes the CUDA-core kernel and ignores it. Launches on `stream` and
+// returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* k_scaled, int bh, int s, int hd, int dtype, float scale,
                                    void* stream) {
@@ -584,8 +844,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16 && hd == 64) return launch_tc(q, k, v, o, k_scaled, bh, s, scale, st);
   if (dtype == kBF16 && hd == 32)
-    return launch_simt<__nv_bfloat16, 32>(q, k, v, o, bh, s, scale, st);
-  if (dtype == kF32 && hd == 64) return launch_simt<float, 64>(q, k, v, o, bh, s, scale, st);
-  if (dtype == kF32 && hd == 32) return launch_simt<float, 32>(q, k, v, o, bh, s, scale, st);
+    return launch_fma<__nv_bfloat16, 32, 128, 8, 8, 2>(q, k, v, o, bh, s, scale, st);
+  if (dtype == kF32 && hd == 64)
+    return launch_fma<float, 64, 128, 8, 4, 1>(q, k, v, o, bh, s, scale, st);
+  if (dtype == kF32 && hd == 32)
+    return launch_fma<float, 32, 128, 8, 8, 2>(q, k, v, o, bh, s, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

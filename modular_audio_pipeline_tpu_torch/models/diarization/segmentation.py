@@ -8,7 +8,7 @@ of each speaker, rounded to f16 as the JAX package ships it to the host;
 the sliding-window layout and the host aggregation of overlapping windows.
 
 Self-attention goes through ``ops.attention.flash_attention``: the
-hand-written kernel on a CUDA tensor (f32 at head dim 32, its SIMT route),
+hand-written kernel on a CUDA tensor (f32 at head dim 32, its CUDA-core route),
 the plain version on the CPU.
 """
 

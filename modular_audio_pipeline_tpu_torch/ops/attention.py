@@ -55,11 +55,11 @@ def flash_arithmetic_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     f32 with the exponential as exp2 of the score times log2(e); the
     UNNORMALISED probabilities rounded to the input type before the
     f32-accumulated product with v; the sum taken from the f32
-    probabilities; one division at the end. The tensor-core kernel uses
-    tiles of 128 keys, the SIMT kernel tiles of 32. Nothing on the main
-    path calls this: it states what the kernel commits to, for the CPU
-    tests that hold it against the JAX package and for explaining a
-    mismatch on the card.
+    probabilities; one division at the end (the kernel multiplies by the
+    reciprocal). Both of the kernel's routes take tiles of 64 keys
+    (``kTileN``, ``kFmaKeys``). Nothing on the main path calls this: it
+    states what the kernel commits to, for the CPU tests that hold it
+    against the JAX package and for explaining a mismatch on the card.
     """
     dt = q.dtype
     scale = q.shape[-1] ** -0.25
@@ -121,7 +121,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     the tensor cores: a pre-pass writes ``k * D^-0.25`` rounded to bf16 into
     scratch allocated here, and q, k, v must start on 16-byte boundaries
     (any fresh tensor does). f32 inputs, and bf16 at D = 32, take the
-    kernel's SIMT path.
+    CUDA-core route (``flash_fwd_fma``: 128 queries a block in register
+    tiles of 8 queries, ``cp.async`` copies of the next K/V tile during
+    this one's f32 FMAs); it copies 16 bytes at a time, so there too q, k
+    and v must start on 16-byte boundaries.
     """
     if q.device.type == "cpu":
         return attention_reference(q, k, v)
@@ -147,11 +150,11 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
     b, h, s, d = q.shape
     if d not in (32, 64):
         raise ValueError(f"flash_attention: head dim {d} not built (32 or 64)")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q/k/v must start on 16-byte boundaries")
     o = torch.empty_like(q)
     scratch = None
     if q.dtype == torch.bfloat16 and d == 64:
-        if any(t.data_ptr() % 16 for t in (q, k, v)):
-            raise ValueError("flash_attention: q/k/v must start on 16-byte boundaries")
         scratch = torch.empty_like(k)  # k * D^-0.25, written by the kernel's pre-pass
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

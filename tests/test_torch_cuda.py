@@ -42,7 +42,7 @@ def test_flash_kernel_matches_plain(cuda, shape, dtype):
     """Ragged query and key tiles (1, 129, 300, 1500, 1501 are no multiples
     of 128), several heads (a tail tile must not reach the next head: the
     whole tensor is compared) and the encoder's own shape; bf16 at head dim
-    64 runs on the tensor cores, the rest on the SIMT path."""
+    64 runs on the tensor cores, the rest on the CUDA-core route."""
     q, k, v = (torch.randn(shape, generator=cuda, device="cuda").to(dtype) for _ in range(3))
     before = attn_ops.flash_attention.launches
     out = attn_ops.flash_attention(q, k, v)
@@ -471,7 +471,7 @@ def test_int8_decode_on_card_matches_cpu(cuda):
 
 @pytest.mark.parametrize("shape", [(32, 4, 1000, 32), (2, 4, 1001, 32)])
 def test_flash_kernel_at_the_segmentation_shape(cuda, shape):
-    """SegmentationNet's call: f32 at head dim 32 (the SIMT route), S 1000
+    """SegmentationNet's call: f32 at head dim 32 (the CUDA-core route), S 1000
     and a ragged 1001, within the f32 tolerance and equal bits twice."""
     q, k, v = (torch.randn(shape, generator=cuda, device="cuda") for _ in range(3))
     out, again = attn_ops.flash_attention(q, k, v), attn_ops.flash_attention(q, k, v)
@@ -479,6 +479,36 @@ def test_flash_kernel_at_the_segmentation_shape(cuda, shape):
     err = (out - attn_ops.attention_reference(q, k, v)).abs().max().item()
     assert err <= TOL[torch.float32], err
     assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("dtype, hd", [(torch.float32, 32), (torch.float32, 64),
+                                       (torch.bfloat16, 32)], ids=["f32_hd32", "f32_hd64", "bf16_hd32"])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 1000, 1001])
+def test_flash_cuda_core_route_at_tile_edges(cuda, s, dtype, hd):
+    """The CUDA-core route's three instantiations at the edges of its 64-key
+    and 128-query tiles, over three heads (the whole tensor is compared, so
+    a tail tile that reached the next head would show): within the
+    tolerance of the plain version, equal bits in two runs, one launch a call."""
+    q, k, v = (torch.randn((1, 3, s, hd), generator=cuda, device="cuda").to(dtype)
+               for _ in range(3))
+    before = attn_ops.flash_attention.launches
+    out, again = attn_ops.flash_attention(q, k, v), attn_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attn_ops.flash_attention.launches == before + 2
+    err = (out.float() - attn_ops.attention_reference(q, k, v).float()).abs().max().item()
+    assert err <= TOL[dtype], err
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("dtype, hd", [(torch.float32, 32), (torch.float32, 64),
+                                       (torch.bfloat16, 32)], ids=["f32_hd32", "f32_hd64", "bf16_hd32"])
+def test_flash_cuda_core_route_refuses_unaligned_views(cuda, dtype, hd):
+    """The route copies 16 bytes at a time, so a view that starts off a
+    16-byte boundary is refused, not read misaligned."""
+    buf = torch.zeros(2 * 64 * hd + 8, device="cuda", dtype=dtype)
+    odd = buf[1:1 + 2 * 64 * hd].view(1, 2, 64, hd)
+    with pytest.raises(ValueError):
+        attn_ops.flash_attention(odd, odd, odd)
 
 
 def test_serving_networks_on_card_match_cpu(cuda):

@@ -39,8 +39,13 @@ FLASH_TOL = {"bf16": 1e-2, "f32": 1e-4}
 @pytest.mark.parametrize("shape, tile", [
     ((1, 2, 1500, 64), 128), ((2, 3, 129, 64), 128), ((1, 2, 300, 32), 32),
     ((1, 2, 300, 32), 128), ((1, 1, 1, 64), 128),
-], ids=["encoder_length", "one_key_past_a_tile", "hd32_simt_tile", "hd32_wide_tile", "one_key"])
+    ((1, 2, 1001, 32), 64), ((1, 2, 1500, 64), 64), ((2, 1, 65, 32), 64),
+], ids=["encoder_length", "one_key_past_a_tile", "hd32_simt_tile", "hd32_wide_tile", "one_key",
+        "hd32_key_tile64_one_key_past", "encoder_length_key_tile64", "hd32_key_tile64_65_keys"])
 def test_flash_arithmetic_matches_jax(shape, tile, dtype):
+    """Both kernel routes take 64-key tiles (``kTileN`` and ``kFmaKeys`` in
+    csrc/flash_attention.cu); the other widths hold the arithmetic's claim
+    that the tile width moves nothing past the tolerance."""
     rng = np.random.default_rng(10)
     q, k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
     if dtype == "bf16":
