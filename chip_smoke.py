@@ -160,6 +160,31 @@ Phases (any failure exits non-zero and prints no result line):
    their shipped bundles: finite losses, the step-0 loss within
    ``SMALL_LOSS_RTOL`` of one step on the CPU, the saved checkpoint
    reloaded into the module bit for bit, ms per step.
+11. The integrity layer and the mesh. (a) ``checksum_device`` on the card
+   equals ``host_checksum`` for int8, int16, int32, int64, float16, bfloat16
+   and float32 at odd sizes; a zeroed device copy is refused
+   (``FetchIntegrityError``); ``put_verified_tree`` of random large-v3-turbo
+   bf16 parameters (807 M) is timed beside a plain upload, and the
+   checksums of one decode batch's buffers; phase 6's timed ``process``
+   must have made a verified fetch per batch. (b) A world of one rank over
+   NCCL (no torchrun) and ``ServingPipeline(cfg, mesh=build_mesh(...))``
+   with a mesh of size 1 at phase 6's configuration: the segments and
+   turns of phase 6's timed run. (c) The flash kernel at the per-rank
+   encoder shape of a model axis of 2, [16, 10, 1500, 64] bf16, and the
+   ancestry kernel at 10 heads (BW 16, K 5, ctx 448, int8) against their
+   plain versions, timed beside their bounds; then a world of two ranks
+   of this script (``--mesh-rank``) sharing the card over gloo, killed at
+   ``MESH_WORLD_S``: the proxy bundle's phase 5 sentences under ``{model:
+   2}`` and ``{data: 2}``, bf16 and int8 (the int8 tree replicated), must
+   give phase 5's segments; large-v3-turbo at phase 6's configuration
+   under ``{model: 2}`` through ``_check_serving``, both ranks the same
+   segments, the flash and ancestry kernels launched on each (counts reset
+   just before, read just after); the first decode step's logits against
+   the unsharded tree's within ``TP_LOGIT_TOL``; one decode step's time,
+   its all-reduces and their time alone; one f32 training step at batch 8
+   under ``--devices 2 --tp 2`` whose loss is within ``TP_LOSS_RTOL`` of
+   phase 10's step-0 loss. Two ranks on one card show correctness at the
+   tensor-parallel shapes, not scaling.
 
 The profiled runs of phases 4 and 4b decode ``PROFILE_TOKENS`` tokens.
 Float32 products run in full f32 (TF32 off for matmuls and cuDNN
@@ -170,6 +195,7 @@ convolutions). The last lines are the card, the per-kernel JSON line and
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -185,6 +211,8 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 SR = 16000
+# what a phase leaves for phase 11 to compare against (phases 5, 6 and 10)
+SHARED: dict = {}
 
 
 def log(msg: str) -> None:
@@ -370,12 +398,12 @@ ANC_TOL = 1e-2  # bf16 y: f32 sums in another order may move a rounded
 
 
 def _anc_inputs(torch, quant: bool, g, ctx: int = 448, shared: bool = False, bw: int = 16,
-                n_layers: int = 4, layer: int = 2):
-    """One decode step's inputs for layer ``layer`` of an ``n_layers`` cache,
-    at the last position of a ``ctx`` bucket. ``shared``: every beam of a
-    window follows beam 0's ancestry up to the last three positions, as
-    real decoding does; else rows at random."""
-    kq, h, hd = 5, 20, 64
+                n_layers: int = 4, layer: int = 2, h: int = 20):
+    """One decode step's inputs for layer ``layer`` of an ``n_layers`` cache
+    of ``h`` heads, at the last position of a ``ctx`` bucket. ``shared``:
+    every beam of a window follows beam 0's ancestry up to the last three
+    positions, as real decoding does; else rows at random."""
+    kq, hd = 5, 64
     bk, pos = bw * kq, ctx - 1
     dev = "cuda"
     q = (torch.randn((bk, h, 1, hd), generator=g, device=dev) * 0.125).to(torch.bfloat16)
@@ -1013,6 +1041,7 @@ def phase_proxy(torch, tmp: Path):
 
     tr = proxy()
     kernel = [tr.transcribe(p)["segments"] for p, _ in paths]
+    SHARED["proxy"] = {"paths": [p for p, _ in paths], "bf16": kernel}
     with plain_kernels():
         plain = [tr.transcribe(p)["segments"] for p, _ in paths]
     agree = _agreement(kernel, plain)
@@ -1029,6 +1058,7 @@ def phase_proxy(torch, tmp: Path):
     tr8._backend.compute_dtype = "int8"
     wrappers = _reset_launches()
     kernel8 = [tr8.transcribe(p)["segments"] for p, _ in paths]
+    SHARED["proxy"]["int8"] = kernel8
     n_int8 = wrappers["int8_matmul"].launches
     with plain_kernels():
         plain8 = [tr8.transcribe(p)["segments"] for p, _ in paths]
@@ -1179,13 +1209,18 @@ def phase_serving(torch, tmp: Path, seconds: float):
     torch.cuda.synchronize()
     log(f"serving: warm-up run {time.perf_counter() - t0:.2f} s")
 
+    from modular_audio_pipeline_tpu_torch.runtime import integrity
+
     wrappers = _reset_launches()
+    fetches = integrity.counts["fetch"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = pipe.process(audio, SR)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
+    fetches = integrity.counts["fetch"] - fetches
+    SHARED["serving"] = result
     stages = dict(pipe.last_timings)
     ds = result["decode_stats"]
     log(f"serving: wall {wall:.3f} s, realtime x{seconds / wall:.1f}, kept "
@@ -1203,6 +1238,9 @@ def phase_serving(torch, tmp: Path, seconds: float):
         raise AssertionError("serving: no segment or no diarization turn")
     _check_serving(result, seconds, "serving")
     n_batches = len(range(0, ds["n_windows"], pipe.backend.batch_size))
+    if fetches < n_batches:
+        raise AssertionError(f"serving: {fetches} verified fetches for {n_batches} batches")
+    log(f"serving: {fetches} verified decode fetches for {n_batches} batch(es)")
     encoder = pipe.backend.dims.n_audio_layer * n_batches
     if launches["flash_attention"] <= encoder:
         raise AssertionError(f"serving: {launches['flash_attention']} flash launches, the encoder's "
@@ -1237,7 +1275,8 @@ def phase_serving(torch, tmp: Path, seconds: float):
                       "segments": len(result["segments"]), "turns": len(result["diarization"]),
                       "host_s_by_stage": stages, "device_busy_share": busy,
                       "top_kernels_ms": top, "flash_fma_ms": mine["flash_fwd_fma"][0],
-                      "run_file_segments": len(doc["segments"]), "proxy": proxy}
+                      "run_file_segments": len(doc["segments"]), "proxy": proxy,
+                      "verified_fetches": fetches}
 
 
 def phase_serving_proxy(torch, tmp: Path):
@@ -2320,6 +2359,7 @@ def train_whisper(torch, tmp: Path) -> tuple:
     from modular_audio_pipeline_tpu_torch.training.whisper_train import _forward_loss, tree_leaves
 
     manifest, _ = synth_asr.make_dataset(str(tmp / "asr"), n_train=8, n_eval=1, seed=0)
+    SHARED["train_manifest"] = manifest
     out = tmp / "finetuned"
     args = train.parse_args(["--manifest", manifest, "--model", "large-v3-turbo",
                              "--weights", "random:0", "--out", str(out)])
@@ -2372,6 +2412,7 @@ def train_whisper(torch, tmp: Path) -> tuple:
         f"{grad_launches} flash launches")
     if not (loss_rel <= TRAIN_LOSS_RTOL and grad_launches == dims.n_audio_layer):
         raise AssertionError(f"train step 0: loss rel {loss_rel}, launches {grad_launches}")
+    SHARED["train_loss0"] = loss_k.item()
     del grads_k, grads_p, grads, plain
     torch.cuda.empty_cache()
 
@@ -2568,6 +2609,385 @@ def phase_training(torch, tmp: Path):
                       "segmentation_flash_launches": small_launches["segmentation"]}
 
 
+# -- phase 11 ----------------------------------------------------------------
+
+CHECKSUM_DTYPES = ("int8", "int16", "int32", "int64", "float16", "bfloat16", "float32")
+TP_LOGIT_TOL = 0.1  # bf16 logits, unsharded vs the model axis of 2: max |diff| over max |logit|.
+#   The split moves the one rounding to bf16 of 76 row-parallel outputs (32 encoder layers x 2,
+#   4 decoder layers x 3) from a bf16 product to an f32 sum of two f32 halves; at random weights
+#   those one-ulp differences (2^-8 relative) carry through 36 residual layers. The same bound
+#   as LM_TOL, which holds two evaluation orders of one bf16 model's logits.
+TP_LOSS_RTOL = 1e-3  # f32 loss, the model axis of 2 vs phase 10's unsharded step 0
+MESH_WORLD_S = 480  # wall-clock limit of the two-rank world (ranks killed after it)
+
+
+def integrity_on_card(torch) -> dict:
+    """Phase 11a: the device checksum on the card against the host's for
+    every dtype the port uploads or fetches, at odd sizes; a zeroed device
+    copy refused; the verified upload of large-v3-turbo's bf16 parameters,
+    timed; the checksum of one decode batch's buffers, timed."""
+    from modular_audio_pipeline_tpu_torch.exceptions import FetchIntegrityError
+    from modular_audio_pipeline_tpu_torch.models.whisper.config import WHISPER_DIMS
+    from modular_audio_pipeline_tpu_torch.models.whisper.model import init_params
+    from modular_audio_pipeline_tpu_torch.runtime.integrity import (
+        checksum_device,
+        fetch_verified_many,
+        host_checksum,
+        put_verified_tree,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for name in CHECKSUM_DTYPES:
+        for n in (1, 3, 7, 1001, (1 << 22) + 5):
+            x = (torch.randn(n, generator=g, device="cuda") * 1000).to(getattr(torch, name))
+            host = x.cpu().contiguous().view(torch.uint8).numpy()
+            if int(checksum_device([x]).cpu()[0]) != int(host_checksum(host)):
+                raise AssertionError(f"integrity: device checksum of {name}[{n}] != host's")
+    x = torch.arange(1, 100_001, device="cuda", dtype=torch.int32)
+    try:
+        fetch_verified_many([x], checksum_device([torch.zeros_like(x)]), ["x"], retries=1)
+        raise AssertionError("integrity: a zeroed device copy verified")
+    except FetchIntegrityError:
+        pass
+    log(f"integrity: device checksums equal the host's for {', '.join(CHECKSUM_DTYPES)} "
+        "at 5 sizes each; a zeroed copy is refused")
+
+    dims = WHISPER_DIMS["large-v3-turbo"]
+    tree = init_params(dims, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16, "cuda")
+
+    def to_host(t):
+        return {k: to_host(v) if isinstance(v, dict) else v.cpu() for k, v in t.items()}
+
+    host = to_host(tree)
+    del tree
+    torch.cuda.empty_cache()
+    n_params = sum(v.numel() for v in _leaves_of(host))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = put_verified_tree(host, "cuda", name="whisper")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = [h.to("cuda") for h in _leaves_of(host)]
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    del dev, plain, host
+    torch.cuda.empty_cache()
+    log(f"integrity: verified upload of random large-v3-turbo bf16 ({n_params / 1e6:.1f} M "
+        f"parameters) {upload_s:.2f} s, a plain upload {plain_s:.2f} s")
+
+    # one decode batch of phase 6 (16 windows x 5 beams, 224 tokens): its
+    # checksums on the device, timed
+    bufs = [torch.randint(0, 51865, (80, 224), generator=g, device="cuda"),
+            torch.randn(80, generator=g, device="cuda"),
+            torch.randint(0, 51865, (16, 5, 224), generator=g, device="cuda"),
+            torch.randn((16, 5), generator=g, device="cuda"), torch.rand(16, device="cuda")]
+    chk_ms = time_ms(lambda: checksum_device(bufs), 20)
+    log(f"integrity: checksums of one decode batch's five buffers {chk_ms:.3f} ms")
+    return {"parameters": n_params, "verified_upload_s": upload_s, "plain_upload_s": plain_s,
+            "checksum_ms_per_batch": chk_ms}
+
+
+def _leaves_of(tree):
+    for v in tree.values():
+        yield from (_leaves_of(v) if isinstance(v, dict) else [v])
+
+
+def _seg_keys(segments):
+    return [(s["start"], s["end"], s["text"]) for s in segments]
+
+
+def world_of_one(torch, audio) -> dict:
+    """Phase 11b: a world of one rank over NCCL (no torchrun) and a mesh of
+    size 1 under phase 6's configuration: the segments and turns of
+    phase 6's timed run."""
+    from modular_audio_pipeline_tpu_torch.config import TPUConfig
+    from modular_audio_pipeline_tpu_torch.parallel.mesh import build_mesh
+    from modular_audio_pipeline_tpu_torch.serving import ServingPipeline
+
+    mesh = build_mesh(TPUConfig(mesh_shape={"data": 1}), "cuda")
+    backend = torch.distributed.get_backend()
+    pipe = ServingPipeline(serving_config("large-v3-turbo", "random:0", 224, True),
+                           device="cuda", mesh=mesh)
+    t0 = time.perf_counter()
+    result = pipe.process(audio, SR)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ref = SHARED["serving"]
+    same_segments = _seg_keys(result["segments"]) == _seg_keys(ref["segments"])
+    same_turns = result["diarization"] == ref["diarization"]
+    log(f"mesh of one ({backend}): process {wall:.2f} s (first run in a new pipeline), "
+        f"{len(result['segments'])} segments equal to phase 6's {same_segments}, "
+        f"{len(result['diarization'])} turns equal {same_turns}")
+    if backend != "nccl" or not (same_segments and same_turns):
+        raise AssertionError("mesh of one: the result differs from the unmeshed run's")
+    del pipe
+    torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    return {"backend": backend, "wall_s": wall, "segments": len(result["segments"]),
+            "turns": len(result["diarization"])}
+
+
+def mesh_world(torch, tmp: Path) -> dict:
+    """Phase 11c: two ranks of this script on the one card over gloo (NCCL
+    refuses a card twice), started together and killed at MESH_WORLD_S.
+    Each runs :func:`mesh_rank`; the results are held here."""
+    import os
+
+    out = tmp / "mesh_world"
+    out.mkdir()
+    spec = {"store": f"file://{out / 'store'}", "out": str(out), "tmp": str(tmp),
+            "proxy": SHARED["proxy"]["paths"], "manifest": SHARED["train_manifest"]}
+    (out / "spec.json").write_text(json.dumps(spec))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # both ranks on cuda:0; their training steps peak together
+    env = dict(os.environ, LOCAL_RANK="0", PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = []
+    for r in range(2):
+        with open(out / f"rank{r}.log", "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                 str(out / "spec.json"), str(r)], env=env, stdout=subprocess.DEVNULL, stderr=err))
+    t0 = time.perf_counter()
+    end = time.monotonic() + MESH_WORLD_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, end - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        late = [p for p in procs if p.poll() is None]
+        for p in late:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    for r in range(2):
+        for line in (out / f"rank{r}.log").read_text().splitlines()[-60:]:
+            log(f"  rank {r}: {line}")
+    if late or any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"mesh world: ranks {[p.returncode for p in procs]} "
+                             f"({'killed at the limit' if late else 'failed'})")
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(2)]
+    ref = SHARED["proxy"]
+    for r, res in enumerate(ranks):
+        for key, want in (("proxy_model2", ref["bf16"]), ("proxy_data2", ref["bf16"]),
+                          ("proxy_int8_data2", ref["int8"]), ("proxy_int8_model2", ref["int8"])):
+            got = res[key]
+            if [_seg_keys(s) for s in got] != [_seg_keys(s) for s in want]:
+                raise AssertionError(f"mesh world rank {r}: {key} segments {got} != {want}")
+    if ranks[0]["serving_segments"] != ranks[1]["serving_segments"]:
+        raise AssertionError("mesh world: the two model ranks assembled other segments")
+    r0 = ranks[0]
+    rel = r0["logits_max_abs_diff"] / r0["logits_max_abs"]
+    loss_rel = abs(r0["train_loss"] - SHARED["train_loss0"]) / abs(SHARED["train_loss0"])
+    log(f"mesh world: wall {wall:.1f} s; proxy tokens and segments under model=2, data=2 and "
+        f"int8 equal phase 5's; turbo TP serving {r0['serving_wall_s']:.2f} / "
+        f"{ranks[1]['serving_wall_s']:.2f} s per rank, {r0['serving_n_segments']} segments, "
+        f"launches {r0['serving_launches']}; first-step logits max |diff| "
+        f"{r0['logits_max_abs_diff']:.4f} of max |logit| {r0['logits_max_abs']:.3f} "
+        f"({rel:.4f}, bound {TP_LOGIT_TOL}); decode step {r0['step_ms']:.2f} ms with "
+        f"{r0['all_reduces_per_step']} all-reduces taking {r0['collective_ms']:.2f} ms "
+        f"({r0['collective_ms'] / r0['step_ms']:.3f} of a step); train step loss "
+        f"{r0['train_loss']:.6f} vs phase 10's {SHARED['train_loss0']:.6f} (rel {loss_rel:.2e}, "
+        f"bound {TP_LOSS_RTOL}), {r0['train_step_s']:.2f} s, peak {r0['train_peak_gib']:.1f} GiB "
+        "a rank")
+    if not rel <= TP_LOGIT_TOL:
+        raise AssertionError(f"mesh world: first-step logits {rel} from the unmeshed run's")
+    if not loss_rel <= TP_LOSS_RTOL:
+        raise AssertionError(f"mesh world: TP training loss {loss_rel} from phase 10's")
+    for name in ("flash_attention", "ancestor_attention"):
+        if any(res["serving_launches"][name] <= 0 for res in ranks):
+            raise AssertionError(f"mesh world: {name} did not launch under the model axis")
+    if any(res["train_flash_launches"] <= 0 for res in ranks):
+        raise AssertionError("mesh world: the TP training step did not launch the flash kernel")
+    return {"wall_s": wall, "ranks": ranks, "logits_rel": rel, "train_loss_rel": loss_rel}
+
+
+def mesh_rank(spec_path: str, rank: int) -> int:
+    """One rank of phase 11c (``chip_smoke.py --mesh-rank SPEC RANK``)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from modular_audio_pipeline_tpu_torch.config import TPUConfig
+    from modular_audio_pipeline_tpu_torch.models.whisper.decode import (
+        _quantize_cross_kv,
+        build_initial_tokens,
+        encode_audio_kv,
+    )
+    from modular_audio_pipeline_tpu_torch.models.whisper.model import (
+        KVCache,
+        decoder_forward,
+        init_params,
+        local_heads,
+    )
+    from modular_audio_pipeline_tpu_torch.ops.mel import log_mel
+    from modular_audio_pipeline_tpu_torch.parallel import sharding
+    from modular_audio_pipeline_tpu_torch.parallel.mesh import build_mesh, init_distributed
+    from modular_audio_pipeline_tpu_torch.serving import ServingPipeline
+    from modular_audio_pipeline_tpu_torch.training import train
+    from modular_audio_pipeline_tpu_torch.transcriber import WhisperTranscriber
+
+    spec = json.loads(Path(spec_path).read_text())
+    init_distributed("cuda", backend="gloo", init_method=spec["store"], rank=rank,
+                     world_size=2, timeout_s=120.0)
+    out = {}
+
+    # first, while the card holds least: one f32 training step at batch 8
+    # under --devices 2 --tp 2 (phase 10's data)
+    args = train.parse_args(["--manifest", spec["manifest"], "--model", "large-v3-turbo",
+                             "--weights", "random:0", "--out", str(Path(spec["tmp"]) / "tp_out"),
+                             "--devices", "2", "--tp", "2"])
+    backend, dataset, state, train_step = train.setup(args, device="cuda")
+    batch = train.to_device(train.local_batch(train.pad_batch(
+        *next(dataset.batches(epoch=0)), 1), backend.mesh), backend.device)
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, loss = train_step(state, *batch)
+    torch.cuda.synchronize()
+    out["train_step_s"] = time.perf_counter() - t0
+    out["train_loss"] = loss.item()
+    out["train_flash_launches"] = wrappers["flash_attention"].launches
+    out["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del backend, dataset, state, train_step, batch, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"rank {rank}: TP train step {out['train_step_s']:.2f} s, loss {out['train_loss']:.6f}, "
+        f"peak {out['train_peak_gib']:.1f} GiB, flash launches {out['train_flash_launches']}")
+
+    # the proxy bundle under each axis, bf16 and int8 (phase 5's sentences)
+    meshes = {"model2": build_mesh(TPUConfig(mesh_shape={"model": 2}), "cuda"),
+              "data2": build_mesh(TPUConfig(mesh_shape={"data": 2}), "cuda")}
+    for name, mesh in meshes.items():
+        for dtype in ("bf16", "int8"):
+            tr = WhisperTranscriber("tiny", beam_size=5, weights_path=str(PROXY),
+                                    max_decode_tokens=128, device="cuda", language="en",
+                                    word_timestamps=False, mesh=mesh)
+            if dtype == "int8":
+                tr._backend.compute_dtype = "int8"
+            key = f"proxy_{name}" if dtype == "bf16" else f"proxy_int8_{name}"
+            out[key] = [tr.transcribe(p)["segments"] for p in spec["proxy"]]
+    log(f"rank {rank}: proxy runs done")
+
+    # large-v3-turbo at phase 6's configuration under the model axis
+    mesh = meshes["model2"]
+    pipe = ServingPipeline(serving_config("large-v3-turbo", "random:0", 224, True),
+                           device="cuda", mesh=mesh)
+    pipe.backend.load()
+    audio = np.round(bench_audio(8 * 60.0) * 32768.0).astype(np.int16)
+    wrappers = _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = pipe.process(audio, SR)
+    torch.cuda.synchronize()
+    out["serving_wall_s"] = time.perf_counter() - t0
+    out["serving_launches"] = {n: w.launches for n, w in wrappers.items()}
+    _check_serving(result, 8 * 60.0, f"rank {rank} TP serving")
+    out["serving_segments"] = _seg_keys(result["segments"])
+    out["serving_n_segments"] = len(result["segments"])
+    log(f"rank {rank}: TP serving {out['serving_wall_s']:.2f} s, "
+        f"{len(result['segments'])} segments, {len(result['diarization'])} turns, "
+        f"launches {out['serving_launches']}")
+
+    # the first decode step's logits (16 windows x 5 beams), then one step's
+    # time and its all-reduces
+    backend = pipe.backend
+    params, dims = backend.params, backend.dims
+    wins = torch.from_numpy(audio[: 16 * 480_000].astype(np.float32) / 32768.0).to("cuda")
+    mel = log_mel(wins.reshape(16, -1), n_mels=dims.n_mels)
+    initial, _ = build_initial_tokens(backend.tokenizer, backend._decode_options("en"))
+    init = torch.tensor(initial, device="cuda")[None].expand(80, -1)
+
+    def prefill(p):
+        xa = _quantize_cross_kv(*encode_audio_kv(p, dims, mel))
+        cache = KVCache.zeros(dims, 80, torch.bfloat16, ctx=448, quant=True, device="cuda",
+                              heads=local_heads(dims.n_text_head, p))
+        logits, cache = decoder_forward(p, dims, init, *xa, cache)
+        return logits[:, -1].float(), xa, cache
+
+    with torch.no_grad():
+        tp_logits, xa, cache = prefill(params)
+        if rank == 0:
+            whole = init_params(dims, torch.Generator(device="cuda").manual_seed(0),
+                                torch.bfloat16, "cuda")
+            ref_logits = prefill(whole)[0]
+            out["logits_max_abs_diff"] = (tp_logits - ref_logits).abs().max().item()
+            out["logits_max_abs"] = ref_logits.abs().max().item()
+            del whole
+        tok = tp_logits.argmax(-1)[:, None]
+        anc = torch.arange(5, device="cuda", dtype=torch.int32)[None, :, None].expand(
+            16, 5, 448).contiguous()
+        p0 = cache.pos
+
+        def step():
+            cache.pos = p0
+            decoder_forward(params, dims, tok, *xa, cache, anc=anc)
+
+        shapes = []
+        real = torch.distributed.all_reduce
+
+        def record(t, *a, **kw):
+            shapes.append((tuple(t.shape), t.dtype))
+            return real(t, *a, **kw)
+
+        step()
+        torch.distributed.all_reduce = record
+        before = sharding.all_reduce_count[0]
+        step()
+        torch.distributed.all_reduce = real
+        out["all_reduces_per_step"] = sharding.all_reduce_count[0] - before
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            step()
+        torch.cuda.synchronize()
+        out["step_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+        group = sharding.model_group(params).group
+        bufs = [torch.zeros(s, dtype=d, device="cuda") for s, d in shapes]
+        t0 = time.perf_counter()
+        for _ in range(20):
+            for b in bufs:
+                real(b, group=group)
+        torch.cuda.synchronize()
+        out["collective_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+        out["collective_shapes"] = [list(s) for s, _ in shapes]
+    log(f"rank {rank}: decode step {out['step_ms']:.2f} ms, {out['all_reduces_per_step']} "
+        f"all-reduces {out['collective_ms']:.2f} ms")
+    (Path(spec["out"]) / f"rank{rank}.json").write_text(json.dumps(out))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_mesh(torch, tmp: Path):
+    """Phase 11: the integrity layer and the mesh."""
+    t0 = time.perf_counter()
+    integrity = integrity_on_card(torch)
+    log(f"phase 11a done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    audio = np.round(bench_audio(8 * 60.0) * 32768.0).astype(np.int16)
+    one = world_of_one(torch, audio)
+    log(f"phase 11b done in {time.perf_counter() - t0:.1f} s")
+    # the kernels at the model axis's per-rank shapes: turbo's 20 heads over 2
+    t0 = time.perf_counter()
+    flash_tp = flash_at(torch, (16, 10, 1500, 64))
+    numbers, _, _ = _anc_case(torch, torch.Generator(device="cuda").manual_seed(12), True, 448,
+                              False, h=10)
+    anc_tp = {**numbers, "shape": "BW 16, K 5, H 10, ctx 448, hd 64, int8, random ancestry",
+              "library_ms": None}
+    torch.cuda.empty_cache()
+    world = mesh_world(torch, tmp)
+    launches = world["ranks"][0]["serving_launches"]
+    flash_tp["launches"] = launches["flash_attention"]
+    anc_tp["launches"] = launches["ancestor_attention"]
+    log(f"phase 11c done in {time.perf_counter() - t0:.1f} s")
+    return {"integrity": integrity, "world_of_one": one, "world_of_two": world,
+            "flash_tp2": flash_tp, "ancestry_tp2": anc_tp}
+
+
 def main() -> int:
     try:
         import torch
@@ -2641,6 +3061,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         training["phase_s"] = time.perf_counter() - t0
         log(f"phase 10 done in {training['phase_s']:.1f} s")
+        t0 = time.perf_counter()
+        mesh = phase_mesh(torch, Path(d))
+        mesh["phase_s"] = time.perf_counter() - t0
+        log(f"phase 11 done in {mesh['phase_s']:.1f} s")
     # each kernel's count from the main path that brings it: phase 6 (the
     # serving path) for the flash and ancestry kernels, phase 4b (the one
     # path with compute_type="int8") for the int8 product; each must also
@@ -2673,10 +3097,16 @@ def main() -> int:
                 raise AssertionError(f"{name} was not launched on the training path")
             k["launches_training_path"] = launches_train[name]
             k["f32_training_encoder"] = training["flash_train"]
+        # the model axis's per-rank shapes (phase 11; mesh_world fails unless
+        # both kernels launched on every rank)
+        if name == "flash_attention":
+            k["tp2_encoder_batch16"] = mesh["flash_tp2"]
+        if name == "ancestor_attention":
+            k["tp2_bk80_h10"] = mesh["ancestry_tp2"]
     log(json.dumps({"end_to_end": e2e, "end_to_end_int8": e2e_int8,
                     "launches_bf16_path": launches, "proxy": proxy, "serving": serving,
                     "separation": separation, "batch": batch, "seek": seek,
-                    "training": training}))
+                    "training": training, "mesh": mesh}))
 
     print(name_power)
     print(json.dumps({"kernels": kernels}))
@@ -2687,4 +3117,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--mesh-rank":  # one rank of phase 11c
+        sys.exit(mesh_rank(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

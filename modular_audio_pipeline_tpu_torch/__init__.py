@@ -21,8 +21,12 @@ decoders, the checkpointed ``BatchDriver`` and the CLI
 repository's ``main.py``); whisper's seek loop (``chunking="sequential"``)
 and incremental ``StreamingSession``s over it; the LLM post-processing
 ladder with a local Llama LM on the card; and the WER/DER metrics
-(``python -m modular_audio_pipeline_tpu_torch.evaluation.metrics``). Every
-name of the JAX package's ``__all__`` resolves here.
+(``python -m modular_audio_pipeline_tpu_torch.evaluation.metrics``); the
+checksummed device transfers of the decode and the weight upload; and
+multi-card data and tensor parallelism (one process per card under
+``torchrun``: ``parallel/mesh.py``, ``parallel/sharding.py``) through
+serving, the transcribers, the batch driver and training. Every name of
+the JAX package's ``__all__`` resolves here.
 
 Example::
 

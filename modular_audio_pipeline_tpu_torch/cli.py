@@ -4,8 +4,14 @@
 repository's ``main.py`` (the JAX package's CLI) and returns its exit
 codes: 0 success, 1 error, 130 interrupted. The work runs on CUDA;
 :func:`main` takes ``device`` for callers that want the CPU (the tests).
-``--devices``/``--tp`` above 1 (multi-GPU is not ported) fail with exit
-code 1 and a ``NotImplementedError`` naming its ROADMAP.md item.
+``--devices``/``--tp`` set ``tpu.mesh_shape`` and run under ``torchrun``,
+one process per card::
+
+    torchrun --nproc-per-node 4 -m modular_audio_pipeline_tpu_torch \
+        --media-dir media --batch --serving --devices 4 --tp 2
+
+A mesh larger or smaller than the world of ranks exits 1 through
+``ShardingError``.
 """
 
 from __future__ import annotations
@@ -105,7 +111,7 @@ Examples:
                                  "stats-only downloads; skips crossfades)")
     proc_group.add_argument("--devices", type=int,
                             help="Shard batch work over this many devices "
-                                 "(one is ported; more raise)")
+                                 "(one process per card under torchrun)")
     proc_group.add_argument("--tp", type=int,
                             help="Tensor-parallel ways (Megatron-style "
                                  "'model' mesh axis; combines with --devices "

@@ -6,11 +6,11 @@ and ``llm`` sections, so that a config file written for the JAX package
 loads here), JSON round-trip with ``_``-prefixed comment keys,
 ``AUDIO_PIPELINE_*`` environment overrides and aggregated validation.
 
-The port reads ``tpu.mesh_shape`` only to refuse a mesh (multi-GPU is
-ROADMAP.md §A item 11), ``tpu.profile_dir`` as a ``torch.profiler``
-trace directory, and ``transcription.device`` not at all: the placement
-is the ``device=`` argument of the entry points (CUDA unless the caller
-asks for the CPU).
+The port reads ``tpu.mesh_shape`` as the device mesh (one process per
+card under ``torchrun``, ``parallel/mesh.py``), ``tpu.profile_dir`` as a
+``torch.profiler`` trace directory, and ``transcription.device`` not at
+all: the placement is the ``device=`` argument of the entry points (CUDA
+unless the caller asks for the CPU).
 
 Precedence when building a config (as the CLI does): CLI flags > JSON
 file > environment > dataclass defaults.
@@ -201,8 +201,9 @@ class TPUConfig:
     its name so config files load unchanged).
 
     ``mesh_shape`` maps axis names to sizes; any axis above 1 asks for a
-    multi-device mesh, which the port does not run yet (ROADMAP.md §A
-    item 11). ``profile_dir`` makes ``AudioPipeline.run`` write a
+    multi-device mesh (``data`` shards window batches, ``model`` the
+    Whisper heads), whose size must equal the number of ranks that
+    ``torchrun`` starts. ``profile_dir`` makes ``AudioPipeline.run`` write a
     ``torch.profiler`` trace there. The other fields are carried for
     config parity.
     """

@@ -3,8 +3,8 @@
 Copied from ``modular_audio_pipeline_tpu/exceptions.py`` so the port never
 imports the JAX package: one class per pipeline stage with the same names,
 ``stage``/``retryable`` metadata, ``str()`` wire format and ``to_dict()``
-form for batch ledgers. (The JAX package's ``FetchIntegrityError`` belongs
-to its integrity layer, ROADMAP.md §A item 10.)
+form for batch ledgers, including the integrity layer's
+``FetchIntegrityError`` (``runtime/integrity.py``).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ __all__ = [
     "AudioPipelineError", "MediaNotFoundError", "MediaConversionError",
     "AudioProcessingError", "VocalSeparationError", "TranscriptionError",
     "DiarizationError", "VADError", "ConfigurationError", "ModelLoadError",
-    "FileValidationError", "ShardingError",
+    "FileValidationError", "ShardingError", "FetchIntegrityError",
 ]
 
 
@@ -106,3 +106,14 @@ class FileValidationError(AudioPipelineError):
 class ShardingError(AudioPipelineError):
     """Mesh construction or sharding specification failed."""
     stage = "sharding"
+
+
+class FetchIntegrityError(AudioPipelineError):
+    """A device<->host transfer failed checksum verification.
+
+    Raised when a critical device buffer (decoded tokens, beam logprobs,
+    uploaded weights) keeps disagreeing with the checksum computed from the
+    other side's copy of the same bytes. Callers should retry the run in a
+    fresh process rather than trust the data.
+    """
+    stage = "fetch"

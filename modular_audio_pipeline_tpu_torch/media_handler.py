@@ -57,9 +57,11 @@ class MediaHandler(MediaHandlerProtocol):
 
     @classmethod
     def from_config(cls, config: PipelineConfig) -> "MediaHandler":
+        from .parallel.mesh import rank_dir
+
         return cls(
             media_dir=config.media_dir,
-            temp_dir=config.temp_dir,
+            temp_dir=rank_dir(config.temp_dir),  # each rank's own under a mesh
             sample_rate=config.audio.sample_rate,
             timeout_s=config.subprocess_timeout_s,
         )

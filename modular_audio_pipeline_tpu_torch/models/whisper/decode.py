@@ -35,8 +35,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...runtime.integrity import checksum_device, fetch_verified_many
 from .config import WhisperDims
-from .model import KVCache, _quantize_rows, cross_kv, decoder_forward, encoder_forward
+from .model import (
+    KVCache,
+    _quantize_rows,
+    cross_kv,
+    decoder_forward,
+    encoder_forward,
+    local_heads,
+)
 from .tokenizer import LANGUAGES, WhisperTokenizer
 
 __all__ = [
@@ -233,7 +241,8 @@ def _greedy_prefill(params, dims, xa_k, xa_v, initial_tokens, sot_index, o, ctx0
     b = initial_tokens.shape[0]
     dev = initial_tokens.device
     cache = KVCache.zeros(dims, b, params["decoder"]["tok_emb"].dtype, ctx=ctx0,
-                          quant=o["kv_int8"], device=dev)
+                          quant=o["kv_int8"], device=dev,
+                          heads=local_heads(dims.n_text_head, params))
     logits, cache = decoder_forward(params, dims, initial_tokens, xa_k, xa_v, cache)
     no_speech_prob = torch.softmax(logits[:, sot_index], dim=-1)[:, o["no_speech"]]
     state = {
@@ -296,7 +305,8 @@ def _beam_prefill(params, dims, xa_k, xa_v, initial_tokens, sot_index, o, ctx0):
     max_new, eot = o["max_tokens"], o["eot"]
 
     cache = KVCache.zeros(dims, bk, params["decoder"]["tok_emb"].dtype, ctx=ctx0,
-                          quant=o["kv_int8"], device=dev)
+                          quant=o["kv_int8"], device=dev,
+                          heads=local_heads(dims.n_text_head, params))
     logits, cache = decoder_forward(params, dims, initial_tokens, xa_k, xa_v, cache)
     no_speech_prob = torch.softmax(logits[:, sot_index], dim=-1)[:, o["no_speech"]]
     no_speech_prob = no_speech_prob.reshape(b, k)[:, 0]
@@ -471,27 +481,42 @@ def _decode_pending(params, dims, tokenizer, mel, opts, rng=None, audio_kv=None
             # padded slots are masked by position until written
             st["anc"] = F.pad(st["anc"], (0, ctx - st["anc"].shape[-1]))
         st = stage(params, dims, xa_k, xa_v, st, suppress, blank, o, stage_end)
+    # the device checksums of what finalize_decode fetches, in the JAX
+    # package's order (runtime/integrity.py)
     if beam:
+        chk = checksum_device((st["out_tokens"], st["beam_lp"], st["fin_tok"], st["fin_lp"],
+                               ns_prob))
         return {"tokens": st["out_tokens"], "sum_lp": st["beam_lp"], "ns_prob": ns_prob,
-                "fin_tok": st["fin_tok"], "fin_lp": st["fin_lp"], "beam": True, "b": b,
-                "k": opts.beam_size, "eot": tokenizer.eot,
+                "fin_tok": st["fin_tok"], "fin_lp": st["fin_lp"], "chk": chk, "beam": True,
+                "b": b, "k": opts.beam_size, "eot": tokenizer.eot,
                 "length_penalty": opts.length_penalty}
-    return {"tokens": st["out_tokens"], "sum_lp": st["sum_lp"], "ns_prob": ns_prob,
+    chk = checksum_device((st["out_tokens"], st["sum_lp"], ns_prob))
+    return {"tokens": st["out_tokens"], "sum_lp": st["sum_lp"], "ns_prob": ns_prob, "chk": chk,
             "beam": False, "b": b, "eot": tokenizer.eot}
 
 
 def finalize_decode(pending: Dict[str, Any]) -> DecodeResult:
-    """Host side of a decode: beam selection and per-window stats."""
+    """Host side of a decode: the verified fetch of the decode's buffers
+    (against the checksums ``chk`` computed on the device; a pending dict
+    without ``chk`` is fetched as it is), beam selection and per-window
+    stats."""
     b, eot = pending["b"], pending["eot"]
-    tokens = pending["tokens"].cpu().numpy().astype(np.int32)
-    sum_lp = pending["sum_lp"].float().cpu().numpy()
-    ns_prob = pending["ns_prob"].float().cpu().numpy()
+    names = (("tokens", "sum_lp", "fin_tok", "fin_lp", "ns_prob") if pending["beam"]
+             else ("tokens", "sum_lp", "ns_prob"))
+    if pending.get("chk") is not None:
+        hosts = fetch_verified_many([pending[n] for n in names], pending["chk"], names)
+    else:
+        hosts = [pending[n].cpu().numpy() for n in names]
+    host = dict(zip(names, hosts))
+    tokens = host["tokens"].astype(np.int32)
+    sum_lp = host["sum_lp"].astype(np.float32)
+    ns_prob = host["ns_prob"].astype(np.float32)
     if pending["beam"]:
         k = pending["k"]
         live_tok = tokens.reshape(b, k, -1)
         live_lp = sum_lp.reshape(b, k)
-        fin_tok = pending["fin_tok"].cpu().numpy().astype(np.int32)  # [B, C, T]
-        fin_lp = pending["fin_lp"].cpu().numpy()  # [B, C]
+        fin_tok = host["fin_tok"].astype(np.int32)  # [B, C, T]
+        fin_lp = host["fin_lp"]  # [B, C]
         penalty = pending.get("length_penalty")
 
         def _norm(lp, lens):
@@ -549,7 +574,8 @@ def detect_language(params, dims: WhisperDims, tokenizer: WhisperTokenizer,
     xa_k, xa_v = encode_audio_kv(params, dims, mel)
     b = mel.shape[0]
     sot = torch.full((b, 1), tokenizer.sot, dtype=torch.int64, device=mel.device)
-    cache = KVCache.zeros(dims, b, params["decoder"]["tok_emb"].dtype, ctx=8, device=mel.device)
+    cache = KVCache.zeros(dims, b, params["decoder"]["tok_emb"].dtype, ctx=8, device=mel.device,
+                          heads=local_heads(dims.n_text_head, params))
     logits, _ = decoder_forward(params, dims, sot, xa_k, xa_v, cache)
     n_lang = tokenizer.special.n_languages
     start = tokenizer.special.language_start

@@ -14,6 +14,17 @@ this step's rows into the cache in place. With a quantised tree
 (``ops/quant.quantize_decoder``) the decoder's projections, the cross K/V
 and the logits run through the weight-only int8 kernel (``ops/quant.py``).
 All three take their plain versions for tensors on the CPU.
+
+A tree from ``parallel/sharding.shard_params`` holds this rank's slices
+over the mesh's ``model`` axis (Megatron tensor parallelism): each rank
+runs ``n_head / tp`` heads, Q/K/V and MLP-up are column parallel,
+the attention output and MLP-down are row parallel (each rank's partial
+product in f32, one f32 all-reduce over the model group, the replicated
+bias added once, one rounding to the activations' type), the embedding
+rows are a feature slice gathered before the first LayerNorm, and the f32
+logits are all-reduced partial products over the sharded features. With
+a whole tree (or a model group of 1) every line computes what it
+computes without a mesh.
 """
 
 from __future__ import annotations
@@ -28,12 +39,20 @@ import torch.nn.functional as F
 
 from ...ops.ancestor_attention import ancestor_attention
 from ...ops.attention import flash_attention
+from ...exceptions import ShardingError
 from ...ops.quant import int8_matmul
+from ...parallel.sharding import (
+    ModelGroup,
+    copy_to_model,
+    gather_from_model,
+    model_group,
+    reduce_from_model,
+)
 from .config import WhisperDims
 
 __all__ = [
     "KVCache", "padded_vocab", "sinusoids", "encoder_forward", "cross_kv",
-    "decoder_forward", "init_params",
+    "decoder_forward", "init_params", "local_heads",
 ]
 
 Params = Dict[str, Any]
@@ -73,15 +92,49 @@ def _linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torc
     return y.reshape(x.shape[:-1] + (w.shape[1],))
 
 
-def _proj(y: torch.Tensor, mod: Dict[str, Any], name: str) -> torch.Tensor:
+def _row_linear(y: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                mg: Optional[ModelGroup]) -> torch.Tensor:
+    """A row-parallel ``y @ w (+ b)``: ``y``'s features and ``w``'s rows are
+    this rank's slice. The partial product is f32, the model group sums it
+    in f32, the bias joins once and the result is rounded once to y's type
+    (:func:`_linear` without a model group)."""
+    if mg is None:
+        return _linear(y, w, b)
+    part = torch.matmul(y.reshape(-1, y.shape[-1]).float(), w.float())
+    part = reduce_from_model(part, mg)
+    if b is not None:
+        part = part + b.float()
+    return part.to(y.dtype).reshape(y.shape[:-1] + (w.shape[1],))
+
+
+def _col_in(y: torch.Tensor, mg: Optional[ModelGroup]) -> torch.Tensor:
+    """The replicated input of column-parallel projections (its gradient
+    is summed over the model group)."""
+    return y if mg is None else copy_to_model(y, mg)
+
+
+def local_heads(n_head: int, params) -> int:
+    """Heads this rank runs: ``n_head / tp`` for a sharded tree."""
+    mg = model_group(params)
+    if mg is None:
+        return n_head
+    if n_head % mg.size:
+        raise ShardingError(f"{n_head} heads do not split over a model axis of {mg.size}")
+    return n_head // mg.size
+
+
+def _proj(y: torch.Tensor, mod: Dict[str, Any], name: str,
+          mg: Optional[ModelGroup] = None) -> torch.Tensor:
     """Projection that dispatches on quantisation: ``name_w`` (the
-    parameters' type) or ``name_wq``/``name_ws`` (weight-only int8: one
-    kernel launch that scales the f32 sum, adds the bias in f32 and rounds
-    once to y's type, as the JAX ``_proj`` does in three operations)."""
+    parameters' type; row parallel when a row-parallel projection, ``o`` or
+    ``fc2``, passes its model group ``mg``) or ``name_wq``/``name_ws``
+    (weight-only int8, never sharded: one kernel launch that scales the f32
+    sum, adds the bias in f32 and rounds once to y's type, as the JAX
+    ``_proj`` does in three operations)."""
     wq = mod.get(f"{name}_wq")
     bias = mod.get(f"{name}_b")
     if wq is None:
-        return _linear(y, mod[f"{name}_w"], bias)
+        return _row_linear(y, mod[f"{name}_w"], bias, mg)
     return int8_matmul(y, wq, mod[f"{name}_ws"], bias, y.dtype)
 
 
@@ -131,9 +184,11 @@ class KVCache:
 
     @staticmethod
     def zeros(dims: WhisperDims, batch: int, dtype: torch.dtype, ctx: Optional[int] = None,
-              quant: bool = False, device="cpu") -> "KVCache":
+              quant: bool = False, device="cpu", heads: Optional[int] = None) -> "KVCache":
+        """``heads``: this rank's heads under tensor parallelism
+        (:func:`local_heads`; default all of ``dims.n_text_head``)."""
         shape = (
-            dims.n_text_layer, batch, dims.n_text_head,
+            dims.n_text_layer, batch, heads if heads is not None else dims.n_text_head,
             ctx if ctx is not None else dims.n_text_ctx,
             dims.n_text_state // dims.n_text_head,
         )
@@ -181,21 +236,22 @@ def encoder_forward(params: Params, dims: WhisperDims, mel: torch.Tensor) -> tor
     x = x.transpose(1, 2)  # [B, T', d]
     x = x + torch.from_numpy(sinusoids(x.shape[1], dims.n_audio_state)).to(x.device, dtype)
 
-    h = dims.n_audio_head
+    mg = model_group(params)
+    h = local_heads(dims.n_audio_head, params)
     for l in range(dims.n_audio_layer):
         p = _layer(enc["blocks"], l)
         resid = x
-        y = _layer_norm(x, p["attn_ln"]["g"], p["attn_ln"]["b"])
+        y = _col_in(_layer_norm(x, p["attn_ln"]["g"], p["attn_ln"]["b"]), mg)
         q = _split_heads(_linear(y, p["attn"]["q_w"], p["attn"]["q_b"]), h).contiguous()
         k = _split_heads(_linear(y, p["attn"]["k_w"], None), h).contiguous()
         v = _split_heads(_linear(y, p["attn"]["v_w"], p["attn"]["v_b"]), h).contiguous()
         y = _merge_heads(flash_attention(q, k, v))
-        x = resid + _linear(y, p["attn"]["o_w"], p["attn"]["o_b"])
+        x = resid + _row_linear(y, p["attn"]["o_w"], p["attn"]["o_b"], mg)
 
         resid = x
-        y = _layer_norm(x, p["mlp_ln"]["g"], p["mlp_ln"]["b"])
+        y = _col_in(_layer_norm(x, p["mlp_ln"]["g"], p["mlp_ln"]["b"]), mg)
         y = F.gelu(_linear(y, p["mlp"]["fc1_w"], p["mlp"]["fc1_b"]))
-        x = resid + _linear(y, p["mlp"]["fc2_w"], p["mlp"]["fc2_b"])
+        x = resid + _row_linear(y, p["mlp"]["fc2_w"], p["mlp"]["fc2_b"], mg)
     return _layer_norm(x, enc["ln_post"]["g"], enc["ln_post"]["b"])
 
 
@@ -208,7 +264,8 @@ def cross_kv(params: Params, dims: WhisperDims, xa: torch.Tensor
     """Per-layer cross-attention K/V from the encoder output, each
     ``[L, B, H, T_audio, hd]``: computed once per window batch."""
     blocks = params["decoder"]["blocks"]
-    h = dims.n_text_head
+    h = local_heads(dims.n_text_head, params)
+    xa = _col_in(xa, model_group(params))
     ks, vs = [], []
     for l in range(dims.n_text_layer):
         p = _layer(blocks, l)["cross"]
@@ -303,12 +360,15 @@ def decoder_forward(
     dec = params["decoder"]
     dtype = dec["tok_emb"].dtype
     b, s = tokens.shape
-    h = dims.n_text_head
+    mg = model_group(params)
+    h = local_heads(dims.n_text_head, params)
     ctx = cache.k.shape[-2]
     pos0 = cache.pos
     dev = tokens.device
 
     x = dec["tok_emb"][tokens] + _pos_rows(dec["pos_emb"], pos0, s)
+    if mg is not None:  # a feature slice: the whole rows on every rank
+        x = gather_from_model(x, mg, -1)
 
     # query i (absolute pos0+i) attends to cache positions <= pos0+i
     q_pos = pos0 + torch.arange(s, device=dev)[:, None]
@@ -323,7 +383,7 @@ def decoder_forward(
     for l in range(dims.n_text_layer):
         p = _layer(dec["blocks"], l)
         resid = x
-        y = _layer_norm(x, p["attn_ln"]["g"], p["attn_ln"]["b"])
+        y = _col_in(_layer_norm(x, p["attn_ln"]["g"], p["attn_ln"]["b"]), mg)
         q = _split_heads(_proj(y, p["attn"], "q"), h)
         k_new = _split_heads(_proj(y, p["attn"], "k"), h)
         v_new = _split_heads(_proj(y, p["attn"], "v"), h)
@@ -367,10 +427,10 @@ def decoder_forward(
                 # backward saved (inference keeps reading the cache itself)
                 k_l, v_l = k_l.clone(), v_l.clone()
             y = _attention(q, k_l, v_l, self_mask)
-        x = resid + _proj(_merge_heads(y), p["attn"], "o")
+        x = resid + _proj(_merge_heads(y), p["attn"], "o", mg)
 
         resid = x
-        y = _layer_norm(x, p["cross_ln"]["g"], p["cross_ln"]["b"])
+        y = _col_in(_layer_norm(x, p["cross_ln"]["g"], p["cross_ln"]["b"]), mg)
         qx = _split_heads(_proj(y, p["cross"], "q"), h)
         if isinstance(xa_k, tuple):
             xk, xv = (xa_k[0][l], xa_k[1][l]), (xa_v[0][l], xa_v[1][l])
@@ -378,18 +438,24 @@ def decoder_forward(
             xk, xv = xa_k[l], xa_v[l]
         y, probs = _cross_attention(qx, xk, xv, dtype, return_cross_probs)
         cross_probs.append(probs)
-        x = resid + _proj(_merge_heads(y), p["cross"], "o")
+        x = resid + _proj(_merge_heads(y), p["cross"], "o", mg)
 
         resid = x
-        y = _layer_norm(x, p["mlp_ln"]["g"], p["mlp_ln"]["b"])
+        y = _col_in(_layer_norm(x, p["mlp_ln"]["g"], p["mlp_ln"]["b"]), mg)
         y = F.gelu(_proj(y, p["mlp"], "fc1"))
-        x = resid + _proj(y, p["mlp"], "fc2")
+        x = resid + _proj(y, p["mlp"], "fc2", mg)
     x = _layer_norm(x, dec["ln"]["g"], dec["ln"]["b"])
 
     if skip_logits:
         logits = None
     elif "logits_wq" in dec:  # weight-only int8 head over the padded vocab
         logits = int8_matmul(x, dec["logits_wq"], dec["logits_ws"])[..., : dims.n_vocab]
+    elif mg is not None:
+        # this rank's features of x against its slice of the table: partial
+        # f32 logits, summed over the model group
+        w = dec["tok_emb"][: dims.n_vocab]
+        xs = copy_to_model(x, mg).narrow(-1, mg.rank * w.shape[1], w.shape[1])
+        logits = reduce_from_model(torch.matmul(xs.float(), w.float().t()), mg)
     else:
         # f32 logits, as the JAX path's f32-accumulated product (bf16 values
         # are exact in f32); the 128-row vocab pad is never multiplied.

@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from .config import WhisperDims
-from .model import KVCache, decoder_forward
+from ...parallel.sharding import gather_from_model, model_group
+from .model import KVCache, decoder_forward, local_heads
 from .tokenizer import WhisperTokenizer
 
 __all__ = ["dtw_path", "dtw_path_python", "dtw_cols_batched", "align_words",
@@ -123,14 +124,19 @@ def _alignment_matrix_impl(params, seq: torch.Tensor, xa_k, xa_v, dims: WhisperD
     per-model mask, every head of the top half of the text layers. Each
     head is standardised over time with f32 accumulators over the f16
     probabilities, rounded to f16 again, median-filtered over 7 frames
-    with edge padding, and the heads are averaged in f32.
+    with edge padding, and the heads are averaged in f32. Under tensor
+    parallelism the heads of every rank are gathered before the
+    standardisation, so the mean covers every head as without a mesh.
     """
     b = seq.shape[0]
     cache = KVCache.zeros(dims, b, params["decoder"]["tok_emb"].dtype, ctx=seq.shape[1],
-                          device=seq.device)
+                          device=seq.device, heads=local_heads(dims.n_text_head, params))
     _, _, cross = decoder_forward(params, dims, seq, xa_k, xa_v, cache,
                                   return_cross_probs=True, skip_logits=True)  # f16 [L,B,H,S,T]
     cross = cross[dims.n_text_layer // 2:]
+    mg = model_group(params)
+    if mg is not None:
+        cross = gather_from_model(cross, mg, 2)
     ls, _, h, s, t = cross.shape
     w = cross.reshape(ls * b * h, s, t)
 
@@ -226,6 +232,7 @@ def align_words_batched(
     items: Sequence[Tuple[int, Sequence[int], Sequence[int]]],
     n_audio_frames: int = 1500,
     chunk: int = 16,
+    longest: int = 0,
 ) -> List[List[Dict[str, float]]]:
     """Align many windows' decoded tokens to audio time in one (or a few)
     batched passes.
@@ -234,7 +241,9 @@ def align_words_batched(
     window; ``xa_k``/``xa_v`` are the full batch's unquantised audio K/V,
     window rows are selected here. Returns one word list per item, in
     order. Sequences are EOT-padded to a shared 64-multiple bucket (the
-    JAX package's shapes); the decoder is causal, so padded rows cannot
+    JAX package's shapes) over the longest of them, or over ``longest``
+    when that is longer (ranks that align their own windows of one batch
+    share the batch's bucket); the decoder is causal, so padded rows cannot
     affect real ones and are ignored.
     """
     if not items:
@@ -243,7 +252,7 @@ def align_words_batched(
     fulls = []
     for _, tokens, prefix in items:
         fulls.append(list(prefix) + [int(t) for t in tokens if int(t) != tokenizer.eot])
-    s_bucket = ((max(len(f) for f in fulls) + 63) // 64) * 64
+    s_bucket = ((max([longest] + [len(f) for f in fulls]) + 63) // 64) * 64
 
     # The teacher-forced pass materialises every layer-head's attention,
     # [L, chunk, H, S, T] f16, plus the standardised top-half copy and its

@@ -12,7 +12,12 @@ Counterpart of ``modular_audio_pipeline_tpu/parallel/batch.py``:
   file with the next WAV decoded on a prefetch thread, other files
   converted to WAV by the media handler first.
 
-Runs on CUDA unless ``device="cpu"``.
+Runs on CUDA unless ``device="cpu"``. Under a mesh (``tpu.mesh_shape``,
+one process per card under ``torchrun``) every rank walks the same file
+list and runs the same pipeline, whose transcriber shards the window
+batches; rank 0 alone writes the ledger, the JSON outputs and the
+checkpoints, and a barrier after each file keeps the ranks in step, so
+every rank reads the same ledger when a run resumes.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Any, Dict, List
 
 from ..config import PipelineConfig
 from ..media_handler import MediaHandler
+from ..parallel.mesh import world_rank
 from ..utils import ensure_directory, get_file_hash, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -57,9 +63,16 @@ class BatchDriver:
                 self._status = {}
 
     def _save_status(self) -> None:
-        tmp = self.status_path.with_suffix(".tmp")
-        tmp.write_text(json.dumps(self._status, indent=2))
-        os.replace(tmp, self.status_path)
+        """Write the ledger (rank 0 under a mesh), then wait for every rank:
+        one barrier per file."""
+        if world_rank() == 0:
+            tmp = self.status_path.with_suffix(".tmp")
+            tmp.write_text(json.dumps(self._status, indent=2))
+            os.replace(tmp, self.status_path)
+        import torch.distributed as dist
+
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
 
     def _file_key(self, path: str) -> str:
         return f"{Path(path).name}:{get_file_hash(path)}"

@@ -16,8 +16,12 @@ on the device from the denoise to the transcriber and the diarizer; a
 WAV is still written at every stage boundary, on a worker thread. Every
 stage runs on ``device`` (None: CUDA, raising without one).
 
-A ``tpu.mesh_shape`` axis above 1 raises ``NotImplementedError`` naming
-its ROADMAP.md item (multi-GPU is not ported). With ``llm.enabled`` the
+A ``tpu.mesh_shape`` axis above 1 runs the transcriber under a mesh (one
+process per card, ``parallel/mesh.py``), which it builds in its
+``from_config``, as in the JAX package; every other stage runs
+replicated on every rank. Rank 0 alone writes the JSON and the stage
+checkpoints; another rank keeps its stage WAVs and conversions in a
+``<temp_dir>.rank<r>`` directory of its own. With ``llm.enabled`` the
 hybrid post-processor (``post_processing_hybrid``; a local LM runs on
 ``device``) analyses the final text, best effort as in the JAX package. As
 in the JAX package, ``SegmentMerger`` builds new segments without
@@ -53,12 +57,12 @@ from .protocols import (
 from .redundancy import NoOpRedundancyRemover, RedundancyRemover
 from .segment_merger import SegmentMerger
 from .separator import NoOpVocalSeparator, VocalSeparator
+from .parallel.mesh import rank_dir, world_rank
 from .transcriber import FasterWhisperTranscriber, WhisperTranscriber
 from .utils import (
     CheckpointManager,
     ensure_directory,
     get_audio_duration,
-    refuse_mesh,
     resolve_device,
 )
 from .vad import NoOpVADFilter, SileroVADFilter, VADFilter
@@ -123,15 +127,17 @@ class AudioPipeline:
     ):
         self.config = config or get_default_config()
         self.config.validate()
-        refuse_mesh(self.config)
         self.device = resolve_device(device)
 
         self.media_dir = ensure_directory(self.config.media_dir)
-        self.temp_dir = ensure_directory(self.config.temp_dir)
+        # under a mesh every rank runs the stages: rank 0 writes the results
+        # and the checkpoints, another rank's stage files stay its own
+        self.temp_dir = ensure_directory(rank_dir(self.config.temp_dir))
         self.results_dir = ensure_directory(self.config.results_dir)
+        self._writer = world_rank() == 0
 
         self.checkpoint_manager: Optional[CheckpointManager] = None
-        if self.config.checkpoint_enabled:
+        if self.config.checkpoint_enabled and self._writer:
             self.checkpoint_manager = CheckpointManager(self.temp_dir)
 
         # -- component wiring: an injected stage, else the first-party one,
@@ -460,9 +466,10 @@ class AudioPipeline:
                 output_data["llm_analysis"] = llm_analysis
 
             out_path = os.path.join(self.results_dir, f"{base}_transcription.json")
-            with open(out_path, "w", encoding="utf-8") as f:
-                json.dump(output_data, f, ensure_ascii=False, indent=2)
-            logger.info("Saved transcription: %s", out_path)
+            if self._writer:
+                with open(out_path, "w", encoding="utf-8") as f:
+                    json.dump(output_data, f, ensure_ascii=False, indent=2)
+                logger.info("Saved transcription: %s", out_path)
 
             return PipelineResult(
                 success=True,

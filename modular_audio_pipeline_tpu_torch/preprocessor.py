@@ -34,6 +34,7 @@ from .audio_io import AudioBuffer, get_buffer, publish_buffer, read_wav, resampl
 from .config import NoiseReductionConfig
 from .exceptions import AudioProcessingError
 from .ops.noise_detect import longest_noise_run
+from .parallel.mesh import rank_dir
 from .protocols import PreprocessorProtocol, TimestampMapping
 from .utils import resolve_device
 
@@ -73,7 +74,7 @@ class AudioPreprocessor(PreprocessorProtocol):
     def from_config(cls, config, device=None) -> "AudioPreprocessor":
         return cls(
             sample_rate=config.audio.sample_rate,
-            temp_dir=config.temp_dir,
+            temp_dir=rank_dir(config.temp_dir),  # each rank's own under a mesh
             noise_config=config.noise_reduction,
             device=device,
         )

@@ -1,3 +1,3 @@
 """Host runtime of the PyTorch port: the native C++ library (decoders,
-DTW, crossfades; ``native_lib``) and the batch driver's file prefetcher
-(``prefetch``)."""
+DTW, crossfades; ``native_lib``), the batch driver's file prefetcher
+(``prefetch``) and the checksummed device transfers (``integrity``)."""

@@ -22,6 +22,7 @@ import numpy as np
 
 from .audio_io import get_buffer, read_stage_input, write_wav
 from .exceptions import VocalSeparationError
+from .parallel.mesh import rank_dir
 from .utils import CheckpointManager, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -106,7 +107,7 @@ class VocalSeparator:
                     device=None) -> "VocalSeparator":
         return cls(
             sample_rate=config.audio.sample_rate,
-            temp_dir=config.temp_dir,
+            temp_dir=rank_dir(config.temp_dir),  # each rank's own under a mesh
             model=config.vocal_separation.model,
             chunk_minutes=config.vocal_separation.chunk_minutes,
             checkpoint_manager=checkpoint_manager,

@@ -30,9 +30,16 @@ stack. The waveform stays on the device end to end:
 
 As in the JAX package, cuts snap to 16-sample blocks, the 20 ms crossfades
 at cut points of the stage-by-stage path are skipped, and the serving path
-has no temperature ladder. Runs on CUDA unless ``device="cpu"``. A
-``mesh`` (multi-GPU serving) is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP.md item.
+has no temperature ladder. Runs on CUDA unless ``device="cpu"``.
+
+Under a mesh (``mesh=``, a ``DeviceMesh``, or ``tpu.mesh_shape``; one
+process per card, ``parallel/mesh.py``) the Whisper parameters are sharded
+over the ``model`` axis and each decode batch over the ``data`` axis: the
+batch is padded to the axis size, each rank decodes its rows, the padded
+rows are discarded, and the per-window results are gathered over the data
+group. The DSP statistics, VAD, gather and diarization run replicated on
+every rank, as in the JAX package, so ``process`` and ``run_file`` return
+the same result on every rank; only rank 0 writes ``run_file``'s JSON.
 """
 
 from __future__ import annotations
@@ -45,7 +52,6 @@ import numpy as np
 import torch
 
 from .protocols import TimestampMapping
-from .utils import not_ported
 
 logger = logging.getLogger(__name__)
 
@@ -193,20 +199,25 @@ class ServingPipeline:
 
     ``config`` is this package's ``PipelineConfig`` or the JAX package's;
     ``backend`` a :class:`~.transcriber.TorchWhisperBackend` on ``device``
-    (built from the config when None); ``device=None`` means CUDA.
+    (built from the config when None); ``device=None`` means CUDA; ``mesh``
+    a ``DeviceMesh`` (built from ``tpu.mesh_shape`` when None and an axis
+    exceeds 1).
     """
 
     def __init__(self, config=None, backend=None, diarize: bool = True, device=None,
                  mesh=None):
         from .config import PipelineConfig
-        from .transcriber import TorchWhisperBackend
-        from .utils import refuse_mesh, resolve_device
+        from .parallel.mesh import check_mesh
+        from .transcriber import TorchWhisperBackend, _mesh_from_config
+        from .utils import resolve_device
 
         self.config = config or PipelineConfig()
-        if mesh is not None:
-            raise not_ported("A device mesh (multi-GPU serving)", "Multi-GPU")
-        refuse_mesh(self.config)
         self.device = resolve_device(device)
+        # windows shard on the mesh's 'data' axis, Whisper's parameters on
+        # 'model'; the DSP statistics, gather and diarization stay replicated
+        if mesh is not None:
+            check_mesh(mesh)
+        self.mesh = mesh if mesh is not None else _mesh_from_config(self.config, self.device)
         if backend is not None:
             if backend.device != self.device:
                 raise ValueError(f"backend on {backend.device}, pipeline on {self.device}")
@@ -229,6 +240,7 @@ class ServingPipeline:
                 patience=t.patience,
                 kv_cache_dtype=getattr(t, "kv_cache_dtype", "int8"),
                 device=str(self.device),
+                mesh=self.mesh,
             )
         self.diarize_enabled = diarize and self.config.diarization.enabled
         self.word_timestamps = self.config.transcription.word_timestamps
@@ -276,6 +288,7 @@ class ServingPipeline:
         from .ops.bucketing import pad_to_bucket
         from .ops.mel import log_mel
         from .ops.noise_detect import longest_noise_run
+        from .parallel.mesh import axis_size
         from .transcriber import _BATCH_BUCKETS
 
         cfg = self.config
@@ -449,23 +462,29 @@ class ServingPipeline:
             kv_int8=getattr(t, "kv_cache_dtype", "int8") == "int8",
         )
         bs = backend.batch_size
+        n_data = axis_size(backend.mesh, "data")
         pending = []
         for start in range(0, n_win, bs):
             end = min(start + bs, pad_win)
-            mel = log_mel(dev_windows[start:end], n_mels=backend.dims.n_mels)
+            rows = dev_windows[start:end]
+            short = (-rows.shape[0]) % n_data
+            if short:  # DP: pad to the data axis; the padded rows are discarded
+                rows = torch.cat([rows, rows.new_zeros((short, rows.shape[1]))])
+            rows, lo = backend._local_rows(rows)
+            mel = log_mel(rows, n_mels=backend.dims.n_mels)
             audio_kv = None
             if self.word_timestamps:
                 audio_kv = encode_audio_kv(backend.params, backend.dims, mel)
             pending.append((start, end - start, _decode_pending(
                 backend.params, backend.dims, backend.tokenizer, mel, opts,
-                audio_kv=audio_kv), audio_kv))
+                audio_kv=audio_kv), audio_kv, lo))
 
         segments: List[Dict[str, Any]] = []
         n_windows_decoded = 0
         tokens_decoded = 0
         eot = backend.tokenizer.eot
-        for start, b, p, audio_kv in pending:
-            result = finalize_decode(p)
+        for start, b, p, audio_kv, lo in pending:
+            result = backend._gather_rows(finalize_decode(p))
             align_jobs: List[tuple] = []
             for i in range(min(b, n_win - start)):
                 toks = np.asarray(result.tokens[i])
@@ -483,7 +502,7 @@ class ServingPipeline:
                     align_jobs.append((segs, result.tokens[i], i, offset))
                 segments.extend(segs)
             if align_jobs:
-                backend._attach_words_batch(align_jobs, audio_kv, opts)
+                backend._attach_words_batch(align_jobs, audio_kv, opts, lo)
         del pending
         lap("whisper")
 
@@ -581,6 +600,7 @@ class ServingPipeline:
         from pathlib import Path
 
         from .audio_io import read_wav, read_wav_raw_int16
+        from .parallel.mesh import world_rank
         from .pipeline import AudioPipeline, PipelineResult
         from .protocols import DiarizationSegment
         from .redundancy import NoOpRedundancyRemover, RedundancyRemover
@@ -629,8 +649,9 @@ class ServingPipeline:
             if results_dir:
                 os.makedirs(results_dir, exist_ok=True)
                 out_path = os.path.join(results_dir, f"{Path(input_wav).stem}_transcription.json")
-                with open(out_path, "w", encoding="utf-8") as f:
-                    json.dump(output_data, f, ensure_ascii=False, indent=2)
+                if world_rank() == 0:  # one writer under a mesh: every rank has the result
+                    with open(out_path, "w", encoding="utf-8") as f:
+                        json.dump(output_data, f, ensure_ascii=False, indent=2)
 
             wall = time.perf_counter() - t0
             return PipelineResult(

@@ -26,6 +26,23 @@ tensor into windows where it lies.
 
 Runs on CUDA unless the caller passes ``device="cpu"``: ``device=None``
 means ``"cuda"`` and raises when no CUDA device is present.
+
+Under a mesh (``mesh=``, or ``tpu.mesh_shape`` through ``from_config``;
+``parallel/mesh.py``, one process per card) the parameters are sharded
+over the ``model`` axis (``parallel/sharding.py``; a weight-only int8 tree
+is replicated) and each batch of windows over the ``data`` axis: the
+bucket divides the axis, each rank encodes and decodes its block of rows,
+and the per-window host results (tokens, log-probabilities, no-speech
+probabilities, word timings) are gathered over the data group, so every
+rank assembles the same segments. The temperature ladder decodes its
+failing windows on every rank. The seek loop decodes one window at a time
+on every rank, tensor parallel where the tree is sharded, as the JAX
+package's does.
+
+A weight bundle loaded onto a CUDA device goes up through the verified
+upload (``runtime/integrity.put_verified_tree``): the host leaves are cast
+and sliced for this rank first, so the verified tensors are the ones the
+model uses.
 """
 
 from __future__ import annotations
@@ -39,6 +56,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .audio_io import get_buffer, read_stage_input, resample_poly
 from .config import RetryConfig
@@ -57,6 +75,9 @@ from .models.whisper.timestamps import align_words, align_words_batched
 from .models.whisper.tokenizer import WhisperTokenizer, load_tokenizer
 from .ops.mel import log_mel
 from .ops.quant import quantize_decoder
+from .parallel.mesh import axis_group, axis_rank, axis_size, build_mesh, check_mesh, shard_batch
+from .parallel.sharding import ShardedParams, model_group, shard_params
+from .runtime.integrity import put_verified_tree
 from .utils import SHIPPED_WEIGHTS, resolve_device, retry_with_backoff
 
 logger = logging.getLogger(__name__)
@@ -78,6 +99,24 @@ def _configure(backend: "TorchWhisperBackend", tc) -> None:
     backend.patience = tc.patience
     backend.kv_cache_dtype = getattr(tc, "kv_cache_dtype", "int8")
     backend.condition_on_previous_text = getattr(tc, "condition_on_previous_text", True)
+
+
+def _mesh_from_config(config, device=None):
+    """The mesh a config declares (``tpu.mesh_shape``), None unless an axis
+    exceeds 1 (as the JAX package's)."""
+    shape = config.tpu.mesh_shape
+    if not shape or max(int(v) for v in shape.values()) <= 1:
+        return None
+    return build_mesh(config.tpu, resolve_device(device))
+
+
+def _gather_object(obj, group) -> list:
+    """Every data rank's ``obj``, in rank order (``[obj]`` alone)."""
+    if group is None:
+        return [obj]
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
 
 
 def _retry_rng(temp_idx: int, device: torch.device) -> torch.Generator:
@@ -113,9 +152,13 @@ class TorchWhisperBackend:
         kv_cache_dtype: str = "int8",
         condition_on_previous_text: bool = True,
         device: Optional[str] = None,
+        mesh=None,  # DeviceMesh: windows on its 'data' axis, params on 'model'
     ):
         if model_name not in WHISPER_DIMS:
             raise ModelLoadError(f"Unknown Whisper model: {model_name}")
+        if mesh is not None:
+            check_mesh(mesh)
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.model_name = model_name
         self.dims: WhisperDims = WHISPER_DIMS[model_name]
@@ -161,7 +204,7 @@ class TorchWhisperBackend:
                 self.model_name, seed,
             )
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            self.params = init_params(self.dims, gen, dtype, self.device)
+            self.params = self._shard(init_params(self.dims, gen, dtype, self.device))
             self.tokenizer = load_tokenizer(None, n_vocab=self.dims.n_vocab)
             self._maybe_quantize()
             # Quality gates are meaningless on random weights: every window
@@ -174,10 +217,60 @@ class TorchWhisperBackend:
                 f"No converted Whisper checkpoint for '{self.model_name}'",
                 details=f"Expected params.npz under {path}.",
             )
-        self.params = params_from_numpy(load_params(path), self.device, dtype)
+        # cast and slice on the host, then upload what the model will use
+        host = self._shard(params_from_numpy(load_params(path), "cpu", dtype))
+        if self.device.type == "cuda":
+            dev = put_verified_tree(host, self.device, name="whisper")
+            host = ShardedParams(dev, host.model) if model_group(host) else dev
+        self.params = host
         self.tokenizer = load_tokenizer(path, n_vocab=self.dims.n_vocab)
         self._maybe_quantize()
         logger.info("Loaded Whisper %s from %s", self.model_name, path)
+
+    def _shard(self, tree):
+        """This rank's slices over the mesh's ``model`` axis; the whole
+        tree without one. A tree to be quantised (``compute_dtype="int8"``)
+        has no tensor-parallel spec and is replicated (data parallelism
+        still applies), as the JAX package's fallback does."""
+        if axis_size(self.mesh, "model") <= 1:
+            return tree
+        if self.compute_dtype == "int8":
+            logger.warning("compute_type=int8: the weight-only int8 tree has no tensor-parallel "
+                           "spec; replicated over model=%d", axis_size(self.mesh, "model"))
+            return tree
+        return shard_params(tree, self.mesh, "model", dims=self.dims)
+
+    # -- data parallelism ----------------------------------------------------
+
+    def _local_rows(self, x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+        """This rank's contiguous block of a batch whose rows divide the
+        data axis, and the index of its first row."""
+        if axis_size(self.mesh, "data") <= 1:
+            return x, 0
+        local, _ = shard_batch(self.mesh, x, "data")
+        return local, axis_rank(self.mesh, "data") * local.shape[0]
+
+    def _gather_rows(self, result):
+        """A batch's ``DecodeResult`` from every data rank's block, in row
+        order (the result itself without a data axis)."""
+        group = axis_group(self.mesh, "data")
+        if group is None:
+            return result
+        parts = _gather_object(result, group)
+        return type(result)(*(np.concatenate(f) for f in zip(*parts)))
+
+    def _decode_batch(self, mel: torch.Tensor, opts: DecodeOptions):
+        """Encode + decode a batch of mel windows, this rank's rows on a
+        data axis -> (``DecodeResult`` of every row, the audio K/V of this
+        rank's rows when words are asked for, this rank's first row)."""
+        local, lo = self._local_rows(mel)
+        # with word timestamps the audio K/V is encoded once and serves
+        # both the decode and the alignment pass
+        audio_kv = (encode_audio_kv(self.params, self.dims, local)
+                    if self.word_timestamps else None)
+        result = decode_windows(self.params, self.dims, self.tokenizer, local, opts,
+                                audio_kv=audio_kv)
+        return self._gather_rows(result), audio_kv, lo
 
     def _maybe_quantize(self) -> None:
         if self.compute_dtype == "int8":
@@ -303,17 +396,15 @@ class TorchWhisperBackend:
         segments: List[Dict[str, Any]] = []
         texts: List[str] = []
         stats = {"windows": 0, "decode_tokens": 0, "retried_windows": 0, "align_s": 0.0}
+        n_data = axis_size(self.mesh, "data")
         for start in range(0, n_win, self.batch_size):
             b = min(self.batch_size, n_win - start)
-            # bucket the batch so a bounded set of shapes runs
-            bucket = next((c for c in _BATCH_BUCKETS if c >= b), b)
+            # bucket the batch so a bounded set of shapes runs; on a mesh the
+            # bucket divides the data axis
+            bucket = next((c for c in _BATCH_BUCKETS if c >= b and c % n_data == 0),
+                          -(-b // n_data) * n_data)
             mel = log_mel(batch(start, b, bucket), n_mels=self.dims.n_mels)
-            # with word timestamps the audio K/V is encoded once and serves
-            # both the decode and the alignment pass
-            audio_kv = (encode_audio_kv(self.params, self.dims, mel)
-                        if self.word_timestamps else None)
-            result = decode_windows(self.params, self.dims, self.tokenizer, mel, opts,
-                                    audio_kv=audio_kv)
+            result, audio_kv, lo = self._decode_batch(mel, opts)
             stats["windows"] += b
             stats["decode_tokens"] += int(result.lengths[:b].sum())
             tokens_rows = {i: result.tokens[i] for i in range(b)}
@@ -346,7 +437,7 @@ class TorchWhisperBackend:
                 texts.extend(s["text"] for s in segs)
             if align_jobs:
                 t0 = time.perf_counter()
-                self._attach_words_batch(align_jobs, audio_kv, opts)
+                self._attach_words_batch(align_jobs, audio_kv, opts, lo)
                 stats["align_s"] += time.perf_counter() - t0
         self.last_stats = stats
         return {
@@ -550,19 +641,34 @@ class TorchWhisperBackend:
                              len(remaining), temp)
         return out
 
-    def _attach_words_batch(self, jobs: List[tuple], audio_kv, opts: DecodeOptions) -> None:
+    def _attach_words_batch(self, jobs: List[tuple], audio_kv, opts: DecodeOptions,
+                            lo: int = 0) -> None:
         """DTW word alignment for a batch of windows in one (or a few)
         passes: ``jobs`` are ``(segs, tokens, window_idx, offset)``; each
-        segment gets its ``words`` and word-tight boundaries."""
+        segment gets its ``words`` and word-tight boundaries. ``audio_kv``
+        holds the rows from ``lo`` on: on a data axis each rank aligns the
+        windows it decoded, at the whole batch's sequence bucket, and the
+        words are gathered over the data group."""
         if not jobs:
             return
         xa_k, xa_v = audio_kv
+        eot = self.tokenizer.eot
         prefix, _ = build_initial_tokens(self.tokenizer, opts)
-        items = [(idx, [int(t) for t in tokens], prefix) for (_, tokens, idx, _) in jobs]
-        words_per_window = align_words_batched(
-            self.params, self.dims, self.tokenizer, xa_k, xa_v, items)
-        for (segs, _, _, offset), words in zip(jobs, words_per_window):
-            self._apply_words(segs, words, offset)
+        longest = max(len(prefix) + sum(int(t) != eot for t in tokens)
+                      for (_, tokens, _, _) in jobs)
+        n_rows = xa_k.shape[1]
+        mine = [(idx - lo, [int(t) for t in tokens], prefix)
+                for (_, tokens, idx, _) in jobs if lo <= idx < lo + n_rows]
+        words = {}
+        if mine:
+            aligned = align_words_batched(self.params, self.dims, self.tokenizer, xa_k, xa_v,
+                                          mine, longest=longest)
+            words = {idx + lo: w for (idx, _, _), w in zip(mine, aligned)}
+        group = axis_group(self.mesh, "data")
+        if group is not None:
+            words = {k: v for part in _gather_object(words, group) for k, v in part.items()}
+        for segs, _, idx, offset in jobs:
+            self._apply_words(segs, words[idx], offset)
 
     def _attach_words(self, segs: List[Dict[str, Any]], tokens, audio_kv, window_idx: int,
                       opts: DecodeOptions, offset: float) -> None:
@@ -651,8 +757,8 @@ class TorchWhisperBackend:
 class WhisperTranscriber:
     """Reference-compatible transcriber on the PyTorch stack.
 
-    Same constructor as the JAX package's ``WhisperTranscriber`` without its
-    ``mesh`` (multi-GPU comes later) and with ``device``.
+    Same constructor as the JAX package's ``WhisperTranscriber``, with
+    ``device``; ``mesh`` is a ``DeviceMesh`` (``parallel/mesh.build_mesh``).
     """
 
     MODEL_INFO = MODEL_INFO
@@ -672,6 +778,7 @@ class WhisperTranscriber:
         chunking: str = "batched",
         max_decode_tokens: int = 224,
         device: Optional[str] = None,
+        mesh=None,
     ) -> None:
         self.model_name = model_name
         self.language = language
@@ -702,6 +809,7 @@ class WhisperTranscriber:
             chunking=chunking,
             max_decode_tokens=max_decode_tokens,
             device=device,
+            mesh=mesh,
         )
         if not lazy_load:
             self.load_model()
@@ -725,6 +833,7 @@ class WhisperTranscriber:
             chunking=tc.chunking,
             max_decode_tokens=tc.max_decode_tokens,
             device=device,
+            mesh=_mesh_from_config(config, device),
         )
         _configure(inst._backend, tc)
         inst._backend.compute_dtype = {"float16": "bfloat16"}.get(tc.compute_type, tc.compute_type)
@@ -822,6 +931,7 @@ class FasterWhisperTranscriber:
         word_timestamps: bool = True,
         chunking: str = "batched",
         max_decode_tokens: int = 224,
+        mesh=None,
     ):
         self.model_name = model_name
         self.compute_type = compute_type
@@ -839,6 +949,7 @@ class FasterWhisperTranscriber:
             chunking=chunking,
             max_decode_tokens=max_decode_tokens,
             device=device,
+            mesh=mesh,
         )
         self.device = self._backend.device
         if not lazy_load:
@@ -859,6 +970,7 @@ class FasterWhisperTranscriber:
             word_timestamps=tc.word_timestamps,
             chunking=tc.chunking,
             max_decode_tokens=tc.max_decode_tokens,
+            mesh=_mesh_from_config(config, device),
         )
         _configure(inst._backend, tc)
         if not config.lazy_load_models:

@@ -18,8 +18,8 @@ logger = logging.getLogger(__name__)
 
 T = TypeVar("T")
 
-__all__ = ["retry_with_backoff", "weights_search_roots", "find_weights_bundle", "not_ported",
-           "resolve_device", "refuse_mesh", "CheckpointManager", "get_file_hash",
+__all__ = ["retry_with_backoff", "weights_search_roots", "find_weights_bundle",
+           "resolve_device", "CheckpointManager", "get_file_hash",
            "validate_file", "ensure_directory", "get_audio_duration", "format_timestamp",
            "parse_timestamp"]
 
@@ -36,23 +36,6 @@ def resolve_device(device=None):
             "pass device='cpu' to run on the CPU"
         )
     return dev
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error an option of the JAX package raises here until its
-    ROADMAP.md queue-A item lands."""
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP.md §A, '{item}')"
-    )
-
-
-def refuse_mesh(config) -> None:
-    """Raise for a config whose ``tpu.mesh_shape`` asks for more than one
-    device on an axis: the port runs on one card (ROADMAP.md §A item 11).
-    The JAX package runs a mesh only when an axis exceeds 1, too."""
-    shape = getattr(getattr(config, "tpu", None), "mesh_shape", None) or {}
-    if any(int(size) > 1 for size in shape.values()):
-        raise not_ported(f"A device mesh (tpu.mesh_shape={dict(shape)})", "Multi-GPU")
 
 
 # The JAX package's shipped bundles, read by path (never imported).

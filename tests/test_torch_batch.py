@@ -178,7 +178,8 @@ def test_interrupted_run_resumes(tmp_path, media, carried, monkeypatch, serving)
 
 def test_cli_exit_codes(tmp_path, monkeypatch):
     """The JAX CLI's codes: 1 for an empty directory, a missing --input, an
-    invalid config and an unported mesh; 130 when interrupted."""
+    invalid config and a mesh larger than the world of ranks (``--devices
+    2`` in one process: ``ShardingError``); 130 when interrupted."""
     empty = tmp_path / "empty"
     empty.mkdir()
     bad = tmp_path / "bad.json"

@@ -628,3 +628,60 @@ def test_train_step_on_card_matches_cpu(cuda):
     diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(card[3], cpu[3])])
     assert diffs.max().item() <= 2 * 1e-3 * 2
     assert (diffs <= 1e-3 * 1e-3 * 2).float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32, torch.int64,
+                                   torch.float16, torch.bfloat16, torch.float32],
+                         ids=lambda d: str(d).split(".")[-1])
+def test_device_checksum_on_the_card_equals_the_host(cuda, dtype):
+    """runtime/integrity: the checksum computed on the card equals the host
+    checksum of the fetched bytes, at odd sizes (a partial last word)."""
+    from modular_audio_pipeline_tpu_torch.runtime.integrity import checksum_device, host_checksum
+
+    for n in (1, 3, 7, 1001, 1 << 20 | 5):
+        x = (torch.randn(n, generator=cuda, device="cuda") * 1000).to(dtype)
+        host = x.cpu().contiguous().view(torch.uint8).numpy()
+        assert int(checksum_device([x]).cpu()[0]) == int(host_checksum(host)), (dtype, n)
+
+
+def test_zeroed_device_copy_raises(cuda):
+    """A fetch whose device checksums were computed from a zeroed copy of
+    the buffer never verifies."""
+    from modular_audio_pipeline_tpu_torch.exceptions import FetchIntegrityError
+    from modular_audio_pipeline_tpu_torch.runtime.integrity import (
+        checksum_device,
+        fetch_verified_many,
+        put_verified_tree,
+    )
+
+    x = torch.arange(1, 1001, device="cuda", dtype=torch.int32)
+    with pytest.raises(FetchIntegrityError):
+        fetch_verified_many([x], checksum_device([torch.zeros_like(x)]), ["x"], retries=1)
+    tree = {"w": torch.randn(33, 7).bfloat16(), "b": {"c": torch.arange(5)}}
+    dev = put_verified_tree(tree, "cuda")
+    assert dev["w"].device.type == "cuda" and torch.equal(dev["w"].cpu(), tree["w"])
+
+
+def test_nccl_world_of_one_serves_as_without_a_mesh(cuda):
+    """parallel/mesh: a world of one rank over NCCL (no torchrun), its mesh
+    of size 1, and the proxy bundle's decode under it equals the unmeshed
+    one, token for token."""
+    from modular_audio_pipeline_tpu_torch.config import TPUConfig
+    from modular_audio_pipeline_tpu_torch.parallel.mesh import build_mesh, mesh_shape
+    from modular_audio_pipeline_tpu_torch.transcriber import TorchWhisperBackend
+    from modular_audio_pipeline_tpu_torch.utils import SHIPPED_WEIGHTS
+
+    mesh = build_mesh(TPUConfig(mesh_shape={"data": 1}), "cuda")
+    try:
+        assert mesh_shape(mesh) == {"data": 1}
+        assert torch.distributed.get_backend() == "nccl"
+        audio = np.random.default_rng(0).standard_normal(16000 * 20).astype(np.float32) * 0.05
+        bundle = str(SHIPPED_WEIGHTS / "whisper-tiny-synth-proxy")
+        out = []
+        for m in (None, mesh):
+            b = TorchWhisperBackend("tiny", weights_path=bundle, device="cuda", mesh=m,
+                                    max_decode_tokens=32)
+            out.append(b.transcribe_array(audio, 16000)["segments"])
+        assert out[0] == out[1]
+    finally:
+        torch.distributed.destroy_process_group()

@@ -202,7 +202,12 @@ def test_failures_transcription_only_and_cleanup(tmp_path):
 
 @pytest.mark.parametrize("option", ["mesh"])
 def test_unported_options_raise(tmp_path, option):
+    """A ``tpu.mesh_shape`` reaches the transcriber's mesh, as in the JAX
+    package; larger than the world of ranks (one process here) it raises
+    ``ShardingError`` naming the torchrun launch."""
+    from modular_audio_pipeline_tpu_torch.exceptions import ShardingError
+
     cfg = port_config(fast_config(tmp_path), tmp_path)
     cfg.tpu.mesh_shape = {"data": 2}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ShardingError, match="torchrun"):
         AudioPipeline(cfg, device="cpu")

@@ -353,13 +353,20 @@ def test_default_device_is_cuda(tmp_path):
 
 @pytest.mark.parametrize("option", ["mesh", "mesh_shape"])
 def test_unported_options_raise(option):
+    """The mesh options, now ported, refuse what cannot run: a ``mesh`` that
+    is not a ``DeviceMesh`` (``TypeError``), and a ``tpu.mesh_shape`` larger
+    than the world of ranks (here one process: ``ShardingError`` naming the
+    torchrun launch, as the JAX package raises for too few devices)."""
+    from modular_audio_pipeline_tpu_torch.exceptions import ShardingError
+
     cfg = configure(PipelineConfig())
     mesh = None
     if option == "mesh":
-        mesh = object()
+        mesh, error, match = object(), TypeError, "DeviceMesh"
     else:
         cfg = configure(JaxConfig(media_dir="/tmp"))
         cfg.tpu.mesh_shape = {"data": 2}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        error, match = ShardingError, "torchrun"
+    with pytest.raises(error, match=match):
         pipe = pt_serving.ServingPipeline(cfg, device="cpu", mesh=mesh)
         pipe.process(np.zeros(SR, np.float32), SR)

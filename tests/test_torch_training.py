@@ -297,11 +297,15 @@ def test_train_cli_end_to_end_equals_jax_and_saves_jax_layout(tmp_path):
 
 
 def test_train_cli_refuses_more_than_one_card(tmp_path):
+    """``--devices``/``--tp`` build the (data, model) mesh of the JAX
+    train.py; in a world of one process (no torchrun) a mesh of two cards
+    raises ``ShardingError`` before anything loads."""
+    from modular_audio_pipeline_tpu_torch.exceptions import ShardingError
     from modular_audio_pipeline_tpu_torch.training import train
 
     manifest = _clips(tmp_path, n=1)
     for flag in (["--devices", "2"], ["--tp", "2"]):
-        with pytest.raises(NotImplementedError, match="A.11"):
+        with pytest.raises(ShardingError, match="torchrun"):
             train.main(["--manifest", str(manifest), "--model", "test-tiny", "--weights",
                         "random:0", "--out", str(tmp_path / "o")] + flag, device="cpu")
 

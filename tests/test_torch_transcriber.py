@@ -150,7 +150,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "pkg.WhisperTranscriber, pkg.ServingPipeline\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m.split('.')[0] in ('jaxlib', 'modular_audio_pipeline_tpu'))\n"
-        "assert len(names) >= 74, names\n"
+        "assert len(names) >= 77, names\n"
         "assert {'serving', 'diarizer', 'vad', 'models.vad_net', 'models.diarization.segmentation',\n"
         "        'models.diarization.embedding', 'separator', 'ops.music', 'models.separation',\n"
         "        'models.separation.repet', 'models.separation.unet', 'models.silero_convert',\n"
@@ -161,7 +161,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'evaluation', 'evaluation.metrics', 'training', 'training.optim',\n"
         "        'training.whisper_train', 'training.data', 'training.train', 'training.voices',\n"
         "        'training.synth_asr', 'training.vad', 'training.diarization',\n"
-        "        'training.separation',\n"
+        "        'training.separation', 'runtime.integrity', 'parallel.mesh',\n"
+        "        'parallel.sharding',\n"
         "        } <= {n.split('.', 1)[1] for n in names}, names\n"
         "pkg.AudioPipeline, pkg.BatchDriver, pkg.FasterWhisperTranscriber\n"
         "for name in pkg.__all__: getattr(pkg, name)\n"
