@@ -185,6 +185,35 @@ Phases (any failure exits non-zero and prints no result line):
    under ``--devices 2 --tp 2`` whose loss is within ``TP_LOSS_RTOL`` of
    phase 10's step-0 loss. Two ranks on one card show correctness at the
    tensor-parallel shapes, not scaling.
+12. A bring-your-own checkpoint and the decode-quality harnesses. (a)
+   Phase 6's random large-v3-turbo tree (seed 0, bf16, each leaf widened
+   to f32, the table without its padding rows) exported as an HF
+   ``model.safetensors`` (F32, written by this script) and as an OpenAI
+   ``.pt``; both converted by ``python -m
+   modular_audio_pipeline_tpu_torch.models.whisper.convert`` in a
+   subprocess, the HF bundle's leaves equal to the source and the OpenAI
+   bundle's ``.npy`` members equal to the HF bundle's; the HF bundle at
+   ``<tmp>/weights/whisper-large-v3-turbo`` beside links to the shipped
+   VAD and diarization bundles, under ``MAP_TPU_WEIGHTS=<tmp>/weights``:
+   ``ServingPipeline.process`` at phase 6's configuration with no
+   ``weights_path`` finds it by default resolution, uploads it verified,
+   and must give phase 6's decoded tokens and segments with phase 6's
+   tokenizer (the bundle ships no BPE assets); the seconds of export,
+   conversion, leaf check and load are printed, and the flash and ancestry
+   kernels must launch (counts reset just before, read just after). (b)
+   ``evaluation.paired`` over ``PAIRED_SENTENCES`` held-out proxy
+   sentences, the card (bf16, kernels) against the CPU (f32, plain
+   versions): it fails if the card's aggregate WER exceeds the CPU's by
+   more than ``PAIRED_WER_TOL``; the per-sentence deltas are printed. (c)
+   ``evaluation.longform`` on one 2.5-minute stream through the batched
+   windows and the seek loop, on the card and on the CPU: timestamps must
+   be monotonic and segments produced on both paths and devices. (d)
+   ``evaluation.crossfade`` on one 2-minute stream on the card, both WERs
+   printed. The CPU references run in subprocesses (``python -m
+   ...evaluation.paired --devices cpu``, ``...longform --device cpu``)
+   started with the phase, beside (a) and the card's decodes, on this
+   process's cores but ``MAIN_CORES`` (``os.sched_setaffinity``), which are
+   left to (a)-(d); the flash and ancestry kernels must launch in (b)-(d).
 
 The profiled runs of phases 4 and 4b decode ``PROFILE_TOKENS`` tokens.
 Float32 products run in full f32 (TF32 off for matmuls and cuDNN
@@ -197,6 +226,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -754,6 +784,31 @@ def record_int8_shapes(shapes: dict):
         model.int8_matmul = real
 
 
+@contextlib.contextmanager
+def record_tokens():
+    """The token rows of every decode batch the model finishes, in order."""
+    from modular_audio_pipeline_tpu_torch.models.whisper import decode
+
+    real, rows = decode.finalize_decode, []
+
+    def spy(pending):
+        result = real(pending)
+        rows.append(np.asarray(result.tokens).copy())
+        return result
+
+    decode.finalize_decode = spy
+    try:
+        yield rows
+    finally:
+        decode.finalize_decode = real
+
+
+def tokenizer_signature(tok) -> tuple:
+    """What decides how tokens become text: the tokenizer's class, vocabulary
+    size and special ids."""
+    return (type(tok).__name__, tok.n_vocab, tok.eot, tok.sot, tok.timestamp_begin)
+
+
 def _timed_run(torch, tr, wav: Path, seconds: float, label: str, warmup=contextlib.nullcontext):
     """Warm-up run (inside ``warmup()``), then one run with every kernel's
     launch count set to 0 just before and read just after -> (result, wall
@@ -1205,9 +1260,12 @@ def phase_serving(torch, tmp: Path, seconds: float):
     torch.cuda.synchronize()
     log(f"serving: random large-v3-turbo loaded in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    pipe.process(audio, SR)
-    torch.cuda.synchronize()
-    log(f"serving: warm-up run {time.perf_counter() - t0:.2f} s")
+    with record_tokens() as tokens:  # for 12a, outside the timed window
+        pipe.process(audio, SR)
+        torch.cuda.synchronize()
+    log(f"serving: warm-up run {time.perf_counter() - t0:.2f} s, {len(tokens)} decode batch(es)")
+    if not tokens:
+        raise AssertionError("serving: no decode batch was recorded")
 
     from modular_audio_pipeline_tpu_torch.runtime import integrity
 
@@ -1221,6 +1279,8 @@ def phase_serving(torch, tmp: Path, seconds: float):
     launches = {name: w.launches for name, w in wrappers.items()}
     fetches = integrity.counts["fetch"] - fetches
     SHARED["serving"] = result
+    SHARED["serving_tokens"] = tokens
+    SHARED["serving_tokenizer"] = tokenizer_signature(pipe.backend.tokenizer)
     stages = dict(pipe.last_timings)
     ds = result["decode_stats"]
     log(f"serving: wall {wall:.3f} s, realtime x{seconds / wall:.1f}, kept "
@@ -2988,6 +3048,377 @@ def phase_mesh(torch, tmp: Path):
             "flash_tp2": flash_tp, "ancestry_tp2": anc_tp}
 
 
+# -- phase 12 ----------------------------------------------------------------
+
+PAIRED_WER_TOL = 0.02  # 12b: the card's aggregate WER (bf16, kernels) may exceed the CPU's
+#                        (f32, plain versions) by at most this over 48 held-out sentences
+PAIRED_SENTENCES = 48  # training/synth_asr's --n-eval default
+LONGFORM_MINUTES = 2.5  # 12c: one stream, both window paths
+CROSSFADE_MINUTES = 2.0  # 12d: one stream, crossfaded and hard-cut
+# the cores kept from the CPU references for this process and its converter
+# subprocesses, so 12a's seconds and the card's decodes are not taken on
+# cores the references hold
+MAIN_CORES = 2
+
+
+def export_checkpoint(tree: dict, layout: str) -> dict:
+    """A tree of the port's layout (numpy, ``[in, out]`` projections) ->
+    the state dict of a published checkpoint: HF ``WhisperForConditional
+    Generation`` names (``layout="hf"``) or OpenAI's, projections back to
+    ``[out, in]``; the converter's inverse."""
+    hf = layout == "hf"
+    enc, dec = tree["encoder"], tree["decoder"]
+    m = "model." if hf else ""
+    attn_names = ("q_proj", "k_proj", "v_proj", "out_proj") if hf else ("query", "key", "value",
+                                                                        "out")
+    sd = {f"{m}encoder.{c}.{part}": enc[c][key] for c in ("conv1", "conv2")
+          for part, key in (("weight", "w"), ("bias", "b"))}
+
+    def ln(name, p):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = p["g"], p["b"]
+
+    def attn(prefix, a, i):
+        for short, name in zip("qkvo", attn_names):
+            sd[f"{prefix}.{name}.weight"] = np.ascontiguousarray(a[f"{short}_w"][i].T)
+            if short != "k":
+                sd[f"{prefix}.{name}.bias"] = a[f"{short}_b"][i]
+
+    for side, blocks, cross in (("encoder", enc["blocks"], False),
+                                ("decoder", dec["blocks"], True)):
+        for i in range(blocks["attn"]["q_w"].shape[0]):
+            pre = f"model.{side}.layers.{i}" if hf else f"{side}.blocks.{i}"
+            attn(f"{pre}.{'self_attn' if hf else 'attn'}", blocks["attn"], i)
+            ln(f"{pre}.{'self_attn_layer_norm' if hf else 'attn_ln'}",
+               {k: v[i] for k, v in blocks["attn_ln"].items()})
+            for fc, name in (("fc1", "fc1" if hf else "mlp.0"), ("fc2", "fc2" if hf else "mlp.2")):
+                sd[f"{pre}.{name}.weight"] = np.ascontiguousarray(blocks["mlp"][f"{fc}_w"][i].T)
+                sd[f"{pre}.{name}.bias"] = blocks["mlp"][f"{fc}_b"][i]
+            ln(f"{pre}.{'final_layer_norm' if hf else 'mlp_ln'}",
+               {k: v[i] for k, v in blocks["mlp_ln"].items()})
+            if cross:
+                attn(f"{pre}.{'encoder_attn' if hf else 'cross_attn'}", blocks["cross"], i)
+                ln(f"{pre}.{'encoder_attn_layer_norm' if hf else 'cross_attn_ln'}",
+                   {k: v[i] for k, v in blocks["cross_ln"].items()})
+    ln("model.encoder.layer_norm" if hf else "encoder.ln_post", enc["ln_post"])
+    tok, pos = (("model.decoder.embed_tokens.weight", "model.decoder.embed_positions.weight") if hf
+                else ("decoder.token_embedding.weight", "decoder.positional_embedding"))
+    sd[tok], sd[pos] = dec["tok_emb"], dec["pos_emb"]
+    ln("model.decoder.layer_norm" if hf else "decoder.ln", dec["ln"])
+    return sd
+
+
+def write_safetensors(path: Path, sd: dict) -> None:
+    """``sd`` (f32 numpy) as a safetensors file, written as the format
+    defines it: the header length, the JSON header padded to 8 bytes,
+    the tensors' bytes in header order (this script needs no package)."""
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for k, v in sd.items():
+        header[k] = {"dtype": "F32", "shape": list(v.shape),
+                     "data_offsets": [offset, offset + v.nbytes]}
+        offset += v.nbytes
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw)
+        for v in sd.values():
+            f.write(np.ascontiguousarray(v, dtype="<f4").data)
+
+
+def _convert_cli(src: Path, dst: Path) -> float:
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "modular_audio_pipeline_tpu_torch.models.whisper.convert",
+                    "--src", str(src), "--dst", str(dst), "--model", "large-v3-turbo"],
+                   cwd=ROOT, check=True, timeout=600)
+    return time.perf_counter() - t0
+
+
+def _bundle_equals(bundle: Path, flat: dict) -> bool:
+    """Every leaf of ``bundle/params.npz`` equal to ``flat``'s, in its order
+    (read one leaf at a time)."""
+    with np.load(bundle / "params.npz") as z:
+        if list(z.files) != list(flat):
+            return False
+        return all(np.array_equal(z[k], flat[k]) and z[k].dtype == flat[k].dtype for k in z.files)
+
+
+def _npz_members_equal(a: Path, b: Path) -> bool:
+    """The members of two ``.npz`` files (names, order, ``.npy`` headers and
+    data) equal byte for byte, read straight from the files: the zips'
+    dates may differ, and zipfile's CRC pass would double the time."""
+    import struct
+    import zipfile
+
+    with zipfile.ZipFile(a) as za, zipfile.ZipFile(b) as zb, open(a, "rb") as fa, \
+            open(b, "rb") as fb:
+        ia, ib = za.infolist(), zb.infolist()
+        if [(i.filename, i.file_size, i.compress_type) for i in ia] != \
+                [(i.filename, i.file_size, i.compress_type) for i in ib]:
+            return False
+        for x, y in zip(ia, ib):
+            if x.compress_type != zipfile.ZIP_STORED:
+                return False
+            starts = []
+            for f, info in ((fa, x), (fb, y)):
+                f.seek(info.header_offset)
+                name_len, extra_len = struct.unpack("<HH", f.read(30)[26:30])
+                starts.append(info.header_offset + 30 + name_len + extra_len)
+            for off in range(0, x.file_size, 1 << 26):
+                n = min(1 << 26, x.file_size - off)
+                fa.seek(starts[0] + off)
+                fb.seek(starts[1] + off)
+                if fa.read(n) != fb.read(n):
+                    return False
+    return True
+
+
+def checkpoint_turbo(torch, tmp: Path) -> tuple:
+    """12a: phase 6's random large-v3-turbo tree exported as an HF F32
+    ``model.safetensors`` and as an OpenAI ``.pt``, both converted by the
+    port's CLI in a subprocess and held leaf for leaf against the source;
+    the HF bundle found by default resolution under ``MAP_TPU_WEIGHTS``
+    gives phase 6's tokens and segments through ``ServingPipeline``."""
+    import os
+
+    from modular_audio_pipeline_tpu_torch.models.whisper.config import WHISPER_DIMS
+    from modular_audio_pipeline_tpu_torch.models.whisper.convert import (
+        flatten_tree,
+        params_to_numpy,
+    )
+    from modular_audio_pipeline_tpu_torch.models.whisper.model import init_params
+    from modular_audio_pipeline_tpu_torch.runtime import integrity
+    from modular_audio_pipeline_tpu_torch.serving import ServingPipeline
+    from modular_audio_pipeline_tpu_torch.transcriber import default_weights_dir
+
+    dims = WHISPER_DIMS["large-v3-turbo"]
+    t0 = time.perf_counter()
+    # the tree of phase 6's "random:0": seed 0 on the card in bf16, each
+    # leaf widened to f32 (exact), the table without the padding rows
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tree = params_to_numpy(init_params(dims, gen, torch.bfloat16, "cuda"))
+    tree["decoder"]["tok_emb"] = np.ascontiguousarray(tree["decoder"]["tok_emb"][:dims.n_vocab])
+    flat = flatten_tree(tree)
+    hf_dir, pt = tmp / "hf-turbo", tmp / "large-v3-turbo.pt"
+    hf_dir.mkdir()
+    write_safetensors(hf_dir / "model.safetensors", export_checkpoint(tree, "hf"))
+    torch.save({"model_state_dict": {k: torch.from_numpy(v) for k, v in
+                                     export_checkpoint(tree, "openai").items()},
+                "dims": {"n_vocab": dims.n_vocab}}, pt)
+    export_s = time.perf_counter() - t0
+    del tree
+    root = tmp / "weights"
+    bundle = root / "whisper-large-v3-turbo"
+    hf_s = _convert_cli(hf_dir, bundle)
+    oai_s = _convert_cli(pt, tmp / "openai-turbo")
+    t0 = time.perf_counter()
+    # the HF bundle leaf for leaf against the source, the OpenAI bundle's
+    # members byte for byte against the HF bundle's
+    equal = {"hf": _bundle_equals(bundle, flat),
+             "openai": _npz_members_equal(tmp / "openai-turbo" / "params.npz",
+                                          bundle / "params.npz")}
+    check_s = time.perf_counter() - t0
+    n_params = sum(v.size for v in flat.values())
+    del flat
+    log(f"checkpoint: {n_params / 1e6:.1f} M f32 parameters exported in {export_s:.1f} s "
+        f"({(hf_dir / 'model.safetensors').stat().st_size / 1e9:.2f} GB safetensors); converted "
+        f"HF {hf_s:.1f} s, OpenAI {oai_s:.1f} s; HF leaves equal to the source, OpenAI "
+        f"members equal to HF's: {equal} (checked in {check_s:.1f} s)")
+    if not all(equal.values()):
+        raise AssertionError(f"checkpoint: a converted bundle differs from its source: {equal}")
+    shutil.rmtree(hf_dir)
+    pt.unlink()
+    shutil.rmtree(tmp / "openai-turbo")
+
+    # the bundle root holds the converted turbo beside the shipped VAD and
+    # diarization bundles phase 6 loads, so every stage is phase 6's
+    for name in ("vad-silero", "diarization-embedding", "diarization-segmentation"):
+        (root / name).symlink_to(ROOT / "modular_audio_pipeline_tpu" / "weights" / name)
+    saved = os.environ.get("MAP_TPU_WEIGHTS")
+    os.environ["MAP_TPU_WEIGHTS"] = str(root)
+    try:
+        if default_weights_dir("large-v3-turbo") != str(bundle):
+            raise AssertionError(f"checkpoint: default resolution found "
+                                 f"{default_weights_dir('large-v3-turbo')}, not {bundle}")
+        pipe = ServingPipeline(serving_config("large-v3-turbo", None, 224, True), device="cuda")
+        uploads = integrity.counts["upload"]
+        t0 = time.perf_counter()
+        pipe.backend.load()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        uploads = integrity.counts["upload"] - uploads
+        audio = np.round(bench_audio(8 * 60.0) * 32768.0).astype(np.int16)
+        wrappers = _reset_launches()
+        t0 = time.perf_counter()
+        with record_tokens() as tokens:
+            result = pipe.process(audio, SR)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: w.launches for name, w in wrappers.items()}
+    finally:
+        if saved is None:
+            os.environ.pop("MAP_TPU_WEIGHTS")
+        else:
+            os.environ["MAP_TPU_WEIGHTS"] = saved
+    tok = tokenizer_signature(pipe.backend.tokenizer)
+    same_tokens = (len(tokens) > 0 and len(tokens) == len(SHARED["serving_tokens"])
+                   and all(np.array_equal(a, b) for a, b in zip(tokens, SHARED["serving_tokens"])))
+    same_segments = _seg_keys(result["segments"]) == _seg_keys(SHARED["serving"]["segments"])
+    log(f"checkpoint: the bundle found by default resolution at {bundle}, loaded and uploaded "
+        f"verified in {load_s:.2f} s ({uploads} verified upload(s)); tokenizer {tok} (phase 6: "
+        f"{SHARED['serving_tokenizer']}); process {wall:.2f} s (first run of a new pipeline), "
+        f"tokens equal to phase 6's {same_tokens}, {len(result['segments'])} segments equal "
+        f"{same_segments}; launches {launches}")
+    if pipe.backend.weights_path is not None or uploads <= 0:
+        raise AssertionError("checkpoint: the bundle was not found by default resolution and "
+                             "uploaded verified")
+    if tok != SHARED["serving_tokenizer"]:
+        raise AssertionError(f"checkpoint: tokenizer {tok} differs from phase 6's")
+    if not (same_tokens and same_segments):
+        raise AssertionError("checkpoint: the converted bundle decodes otherwise than random:0")
+    if launches["flash_attention"] <= 0 or launches["ancestor_attention"] <= 0:
+        raise AssertionError(f"checkpoint: a kernel was not launched: {launches}")
+    del pipe
+    torch.cuda.empty_cache()
+    return launches, {"parameters": n_params, "export_s": export_s, "convert_hf_s": hf_s,
+                      "convert_openai_s": oai_s, "leaf_check_s": check_s, "load_s": load_s,
+                      "process_s": wall, "segments": len(result["segments"])}
+
+
+def reference_cores() -> dict:
+    """This process's cores but the first ``MAIN_CORES``, split between the
+    two CPU references in the ratio of their work (the paired decode takes
+    about twice the long-form's), at least one core each."""
+    import os
+
+    cores = sorted(os.sched_getaffinity(0))
+    free = cores[MAIN_CORES:] if len(cores) >= MAIN_CORES + 2 else cores
+    n = max(1, min(len(free) - 1, round(len(free) * 2 / 3)))
+    return {"paired": free[:n], "longform": free[n:] or free}
+
+
+_PINNED = ("import os, runpy, sys\n"
+           "os.sched_setaffinity(0, [int(c) for c in sys.argv.pop(1).split(',')])\n"
+           "sys.argv[0] = sys.argv.pop(1)\n"
+           "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n")
+
+
+def _start_cpu_reference(tmp: Path, name: str, module: str, args: list, cores: list):
+    """A CPU reference decode in a subprocess on ``cores`` alone, with one
+    torch thread a core (the card's decodes run meanwhile): its JSON line
+    goes to ``<tmp>/<name>.json``."""
+    import os
+
+    env = dict(os.environ, OMP_NUM_THREADS=str(len(cores)))
+    out = open(tmp / f"{name}.json", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _PINNED, ",".join(map(str, cores)),
+         f"modular_audio_pipeline_tpu_torch.evaluation.{module}", *args],
+        cwd=ROOT, stdout=out, stderr=subprocess.DEVNULL, env=env)
+    return proc, out, time.perf_counter()
+
+
+def _cpu_reference(ref, timeout: float) -> dict:
+    proc, out, t0 = ref
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+    if rc != 0:
+        raise AssertionError(f"the CPU reference {proc.args} exited with {rc}")
+    doc = json.loads(Path(out.name).read_text().strip().splitlines()[-1])
+    doc["ended_after_s"] = time.perf_counter() - t0  # from its start to its collection
+    return doc
+
+
+def quality_harnesses(torch, tmp: Path, refs: dict) -> tuple:
+    """12b-d: the paired per-sentence WER, card against CPU; the long-form
+    streams through both window paths; crossfaded against hard-cut silence
+    removal. The card's decodes run here (bf16, kernels) while the CPU
+    references (f32, plain versions) run in their subprocesses."""
+    from modular_audio_pipeline_tpu_torch.evaluation import crossfade, longform, paired
+
+    wrappers = _reset_launches()
+    t0 = time.perf_counter()
+    card = paired.evaluate(limit=PAIRED_SENTENCES, devices=("cuda",))
+    paired_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    long_card = longform.evaluate(minutes=LONGFORM_MINUTES, streams=1, device="cuda")
+    long_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xfade = crossfade.evaluate(minutes=CROSSFADE_MINUTES, streams=1, device="cuda")
+    xfade_s = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+
+    cpu = _cpu_reference(refs["paired"], 600)
+    long_cpu = _cpu_reference(refs["longform"], 600)
+    per_card, per_cpu = card["per_sentence_wer"]["card"], cpu["per_sentence_wer"]["cpu"]
+    deltas = paired.paired_deltas(per_card, per_cpu)
+    agg = {"cpu": cpu["aggregate_wer"]["cpu"], "card": card["aggregate_wer"]["card"]}
+    log(f"paired: {PAIRED_SENTENCES} held-out sentences, aggregate WER card {agg['card']:.4f} vs "
+        f"CPU {agg['cpu']:.4f} (bound +{PAIRED_WER_TOL}); card minus CPU mean {deltas['mean']}, "
+        f"worse {deltas['n_worse']}, better {deltas['n_better']}, equal {deltas['n_equal']}, "
+        f"max |delta| {deltas['max_abs']}; card {paired_s:.1f} s, "
+        f"CPU {cpu['decode_s']['cpu']:.1f} s")
+    log(f"paired: per-sentence deltas {deltas['per_sentence']}")
+    log(f"longform: {LONGFORM_MINUTES} min, card " + ", ".join(
+        f"{m} WER {long_card[m]['wer']} ({long_card[m]['segments']} segments, monotonic "
+        f"{long_card[m]['monotonic']})" for m in ("batched", "sequential"))
+        + "; CPU " + ", ".join(f"{m} WER {long_cpu[m]['wer']} "
+                               f"(monotonic {long_cpu[m]['monotonic']})"
+                               for m in ("batched", "sequential"))
+        + f"; card {long_s:.1f} s, CPU " + " + ".join(
+            f"{long_cpu[m]['wall_s']:.1f}" for m in ("batched", "sequential")) + " s")
+    log(f"crossfade: {CROSSFADE_MINUTES} min on the card, WER crossfade 20 ms "
+        f"{xfade['crossfade_20ms']}, hard cut {xfade['hard_cut']} ({xfade_s:.1f} s); "
+        f"launches of 12b-d {launches}")
+    if agg["card"] - agg["cpu"] > PAIRED_WER_TOL:
+        raise AssertionError(f"paired: the card's WER {agg['card']} exceeds the CPU's {agg['cpu']} "
+                             f"by more than {PAIRED_WER_TOL}")
+    for side, doc in (("card", long_card), ("CPU", long_cpu)):
+        for m in ("batched", "sequential"):
+            if not (doc[m]["monotonic"] and doc[m]["segments"] > 0):
+                raise AssertionError(f"longform ({side}, {m}): {doc[m]}")
+    if launches["flash_attention"] <= 0 or launches["ancestor_attention"] <= 0:
+        raise AssertionError(f"quality harnesses: a kernel was not launched: {launches}")
+    return launches, {"paired": {"aggregate_wer": agg, "card_minus_cpu": deltas,
+                                 "card_s": paired_s, "cpu_s": cpu["decode_s"]["cpu"]},
+                      "longform": {"card": long_card, "cpu": long_cpu, "card_s": long_s},
+                      "crossfade": {**xfade, "card_s": xfade_s}}
+
+
+def phase_checkpoints(torch, tmp: Path):
+    """Phase 12: a bring-your-own checkpoint at full width, then the
+    decode-quality harnesses on the card against the CPU, in a directory of
+    their own (earlier phases leave bundles under ``tmp``)."""
+    import os
+
+    tmp = tmp / "phase12"
+    tmp.mkdir()
+    cores = reference_cores()
+    log(f"phase 12: the CPU references on cores {cores} of {sorted(os.sched_getaffinity(0))}")
+    refs = {"paired": _start_cpu_reference(tmp, "paired_cpu", "paired", [
+                "--devices", "cpu", "--limit", str(PAIRED_SENTENCES)], cores["paired"]),
+            "longform": _start_cpu_reference(tmp, "longform_cpu", "longform", [
+                "--device", "cpu", "--minutes", str(LONGFORM_MINUTES), "--streams", "1"],
+                cores["longform"])}
+    try:
+        t0 = time.perf_counter()
+        launches_ckpt, ckpt = checkpoint_turbo(torch, tmp)
+        log(f"phase 12a done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches_quality, quality = quality_harnesses(torch, tmp, refs)
+        log(f"phase 12b-d done in {time.perf_counter() - t0:.1f} s")
+    finally:
+        for proc, out, _ in refs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    return launches_ckpt, launches_quality, {"checkpoint": ckpt, **quality}
+
+
 def main() -> int:
     try:
         import torch
@@ -3065,6 +3496,11 @@ def main() -> int:
         mesh = phase_mesh(torch, Path(d))
         mesh["phase_s"] = time.perf_counter() - t0
         log(f"phase 11 done in {mesh['phase_s']:.1f} s")
+        t0 = time.perf_counter()
+        launches_ckpt, launches_quality, checkpoints = phase_checkpoints(torch, Path(d))
+        torch.cuda.empty_cache()
+        checkpoints["phase_s"] = time.perf_counter() - t0
+        log(f"phase 12 done in {checkpoints['phase_s']:.1f} s")
     # each kernel's count from the main path that brings it: phase 6 (the
     # serving path) for the flash and ancestry kernels, phase 4b (the one
     # path with compute_type="int8") for the int8 product; each must also
@@ -3103,10 +3539,15 @@ def main() -> int:
             k["tp2_encoder_batch16"] = mesh["flash_tp2"]
         if name == "ancestor_attention":
             k["tp2_bk80_h10"] = mesh["ancestry_tp2"]
+        # phase 12: the converted checkpoint's serving run and the quality
+        # harnesses (both fail unless flash and ancestry launched)
+        if name != "int8_matmul":
+            k["launches_converted_checkpoint"] = launches_ckpt[name]
+            k["launches_quality_harnesses"] = launches_quality[name]
     log(json.dumps({"end_to_end": e2e, "end_to_end_int8": e2e_int8,
                     "launches_bf16_path": launches, "proxy": proxy, "serving": serving,
                     "separation": separation, "batch": batch, "seek": seek,
-                    "training": training, "mesh": mesh}))
+                    "training": training, "mesh": mesh, "checkpoints": checkpoints}))
 
     print(name_power)
     print(json.dumps({"kernels": kernels}))

@@ -13,7 +13,9 @@ kernel's at the decode shape (16 windows x 5 beams x 20 heads, int8
 cache), at a 448 and a 64 context bucket, with random and with shared
 ancestry, and the int8 product's at the five main-path shapes and at 16
 rows: the
-kernel alone (``int8_matmul(x, wq, ws)``, f32 out) and, for the four
+kernel alone (``int8_matmul(x, wq, ws)``, f32 out) beside its plain
+version (``int8_matmul_reference``) and its bound (bytes over 3.35 TB/s or
+multiply-adds over 989 TFLOP/s, the larger), and, for the four
 projection shapes, the model's ``_proj`` with a bf16 bias and bf16
 activations (the kernel plus whatever bias add and cast the tree does
 after it) with the number of int8 kernel launches it makes (the
@@ -306,7 +308,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     from modular_audio_pipeline_tpu_torch.models.whisper.model import _proj
-    from modular_audio_pipeline_tpu_torch.ops.quant import int8_matmul
+    from modular_audio_pipeline_tpu_torch.ops.quant import int8_matmul, int8_matmul_reference
 
     for m, k, n in INT8_SHAPES:
         x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
@@ -327,6 +329,15 @@ def main() -> int:
             out[f"proj_{shape}_launches"] = wrapper_launches(torch, int8_matmul, proj)
             log(f"proj {shape}: {out[f'proj_{shape}_launches']} int8 kernel launches (wrapper "
                 f"counter), {device_launches(torch, proj)} device kernels (torch.profiler)")
+        out[f"plain_int8_{shape}_ms"] = graph_ms(
+            torch, [lambda w=w: int8_matmul_reference(x, w, ws) for w in wqs[:2]], reps=reps)
+        # the least time: bf16 x, int8 codes and f32 scales read once, the f32
+        # product written once, over the memory rate, or its multiply-adds at
+        # the bf16 tensor-core rate, whichever is longer
+        t_bytes = (m * k * 2 + k * n + n * 4 + m * n * 4) / 3.35e12
+        t_ops = 2 * m * k * n / 989e12
+        out[f"int8_{shape}_bound_ms"] = max(t_bytes, t_ops) * 1e3
+        out[f"int8_{shape}_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         w_bf16 = [(w.float() * ws).to(torch.bfloat16) for w in wqs]
         out[f"bf16_matmul_{shape}_ms"] = graph_ms(
             torch, [lambda w=w: torch.matmul(x, w) for w in w_bf16], reps=reps)

@@ -240,17 +240,19 @@ class LlamaLM:
 
 def convert_hf_llama(src: str, dst: str, model_name: str) -> None:
     """HF llama/mistral safetensors -> the flat ``params.npz`` tree
-    (offline; the JAX package's converter, copied)."""
+    (offline; the JAX package's converter, copied, reading the files with
+    the port's own ``models/safetensors_reader.py``: no ``safetensors``
+    package). BF16 tensors are widened to f32 exactly, as the JAX
+    converter widens them through ``ml_dtypes``."""
     from pathlib import Path
 
-    from safetensors.numpy import load_file
-
+    from ..safetensors_reader import load_safetensors
     from ..whisper.convert import save_params
 
     cfg = LLAMA_CONFIGS[model_name]
     sd: Dict[str, np.ndarray] = {}
     for f in sorted(Path(src).glob("*.safetensors")):
-        sd.update(load_file(str(f)))
+        sd.update(load_safetensors(f, bf16_as_f32=True))
 
     def g(k):
         return sd[k].astype(np.float32)

@@ -22,7 +22,8 @@ so sampled tokens are reproducible per seed, not equal across packages.
 Where the JAX package selects rows with one-hot "exact einsums" (a TPU
 matmul-precision workaround), the port gathers with integer indices,
 which is exact by construction. Top-k selection breaks ties toward the
-lower flat index, as JAX's ``top_k``/``approx_max_k`` do, by a stable sort.
+lower flat index, as JAX's ``top_k``/``approx_max_k`` do: the first k of
+a stable descending sort, selected without sorting the whole row.
 """
 
 from __future__ import annotations
@@ -214,9 +215,20 @@ def _pad_cache(cache: KVCache, ctx: int) -> KVCache:
 
 
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top ``k`` along the last axis, descending, ties to the lower index."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    """Top ``k`` of ``x`` along the last axis, descending, ties to the
+    lower index: the first ``k`` of ``torch.sort(x, descending=True,
+    stable=True)``, NaNs first and -0.0 equal to 0.0 as there. Each element
+    becomes a unique int64 key, its value's order in the high word and its
+    reversed index in the low word, so ``topk`` has no ties to break; a
+    full sort of a beam step's K x vocab row is the CPU decode's largest
+    cost."""
+    n = x.shape[-1]
+    bits = (x.float() + 0.0).view(torch.int32).long()  # + 0.0 turns -0.0 into 0.0
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)  # the floats' order
+    key = torch.where(torch.isnan(x), 0x7FFFFFFF, key)
+    key = (key << 32) | (n - 1 - torch.arange(n, device=x.device))
+    idx = (n - 1) - (torch.topk(key, k, dim=-1).values & 0xFFFFFFFF)
+    return x.gather(-1, idx), idx
 
 
 def _filtered_logprobs(prev_logits, i, last, penult, max_ts, suppress, blank, o):

@@ -48,6 +48,7 @@ model uses.
 from __future__ import annotations
 
 import logging
+import os
 import time
 import zlib
 from dataclasses import replace
@@ -62,7 +63,7 @@ from .audio_io import get_buffer, read_stage_input, resample_poly
 from .config import RetryConfig
 from .exceptions import ModelLoadError, TranscriptionError
 from .models.whisper.config import MODEL_INFO, WHISPER_DIMS, WhisperDims
-from .models.whisper.convert import load_params, params_from_numpy
+from .models.whisper.convert import CONVERT_COMMAND, load_params, params_from_numpy
 from .models.whisper.decode import (
     DecodeOptions,
     build_initial_tokens,
@@ -78,11 +79,12 @@ from .ops.quant import quantize_decoder
 from .parallel.mesh import axis_group, axis_rank, axis_size, build_mesh, check_mesh, shard_batch
 from .parallel.sharding import ShardedParams, model_group, shard_params
 from .runtime.integrity import put_verified_tree
-from .utils import SHIPPED_WEIGHTS, resolve_device, retry_with_backoff
+from .utils import find_weights_bundle, resolve_device, retry_with_backoff, weights_search_roots
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["WhisperTranscriber", "FasterWhisperTranscriber", "TorchWhisperBackend"]
+__all__ = ["WhisperTranscriber", "FasterWhisperTranscriber", "TorchWhisperBackend",
+           "default_weights_dir"]
 
 _WINDOW_S = 30.0
 _SR = 16000
@@ -124,6 +126,21 @@ def _retry_rng(temp_idx: int, device: torch.device) -> torch.Generator:
     call with the rung's seed (the JAX package's ``PRNGKey(1000 +
     temp_idx)``), so a retry never depends on what was sampled before."""
     return torch.Generator(device=device).manual_seed(1000 + temp_idx)
+
+
+def default_weights_dir(model_name: str) -> str:
+    """The ``whisper-<name>`` bundle of the first search root that holds one
+    (``utils.weights_search_roots``: ``MAP_TPU_WEIGHTS`` alone, else
+    ``~/.cache/map_tpu`` before the shipped bundles); without one, that name
+    under the last root, as the JAX package's ``default_weights_dir``."""
+    found = find_weights_bundle(f"whisper-{model_name}")
+    if found is not None:
+        return str(found)
+    return str(weights_search_roots()[-1] / f"whisper-{model_name}")
+
+
+def _random_fallback_allowed() -> bool:
+    return os.environ.get("MAP_TPU_ALLOW_RANDOM_WEIGHTS") == "1"
 
 
 class TorchWhisperBackend:
@@ -188,6 +205,14 @@ class TorchWhisperBackend:
         # and the seconds its word-alignment passes took
         self.last_stats: Dict[str, Any] = {}
 
+        # lazy loading finds a missing checkpoint only after preprocessing:
+        # say so now, as the JAX package's backend does
+        resolved = self.weights_path or default_weights_dir(model_name)
+        if (not str(resolved).startswith("random") and not Path(resolved, "params.npz").exists()
+                and not _random_fallback_allowed()):
+            logger.warning("No converted checkpoint at %s — transcription will fail at "
+                           "load time unless one is converted first", resolved)
+
     # -- lifecycle ---------------------------------------------------------
 
     def load(self) -> None:
@@ -195,7 +220,7 @@ class TorchWhisperBackend:
             return
         # "int8" loads bf16, then quantises the decoder below
         dtype = _DTYPES.get(self.compute_dtype, torch.bfloat16)
-        path = self.weights_path or str(SHIPPED_WEIGHTS / f"whisper-{self.model_name}")
+        path = self.weights_path or default_weights_dir(self.model_name)
 
         if str(path).startswith("random"):
             seed = int(str(path).partition(":")[2] or 0)
@@ -213,9 +238,22 @@ class TorchWhisperBackend:
             return
 
         if not Path(path, "params.npz").exists():
+            if _random_fallback_allowed():
+                # the JAX package's fallback keeps the ladder armed and
+                # leaves the tree unquantised; so does this one
+                logger.warning("No checkpoint at %s; falling back to random weights "
+                               "(MAP_TPU_ALLOW_RANDOM_WEIGHTS=1)", path)
+                gen = torch.Generator(device=self.device).manual_seed(0)
+                self.params = self._shard(init_params(self.dims, gen, dtype, self.device))
+                self.tokenizer = load_tokenizer(None, n_vocab=self.dims.n_vocab)
+                return
             raise ModelLoadError(
                 f"No converted Whisper checkpoint for '{self.model_name}'",
-                details=f"Expected params.npz under {path}.",
+                details=(
+                    f"Expected params.npz under {path}. Convert one offline with:\n"
+                    f"  {CONVERT_COMMAND} --src <hf-or-openai-ckpt> --dst {path} "
+                    f"--model {self.model_name}"
+                ),
             )
         # cast and slice on the host, then upload what the model will use
         host = self._shard(params_from_numpy(load_params(path), "cpu", dtype))

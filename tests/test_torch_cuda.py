@@ -685,3 +685,22 @@ def test_nccl_world_of_one_serves_as_without_a_mesh(cuda):
         assert out[0] == out[1]
     finally:
         torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_decode_top_k_on_the_card_equals_a_stable_sort(cuda, dtype):
+    """The beam step's top-k on the card takes the first k of a stable
+    descending sort, as on the CPU: 16 windows x 5 beams x turbo's vocab,
+    suppressed tokens at -1e9 and runs of equal values."""
+    from modular_audio_pipeline_tpu_torch.models.whisper import decode
+
+    x = torch.log_softmax(torch.randn((16, 5 * 51866), generator=cuda, device="cuda"), -1)
+    x[:, ::7] = -1e9
+    x[0, 100:400] = x[0, 5]
+    x[1] = torch.round(x[1])
+    x = x.to(dtype)
+    for k in (10, 5):
+        vals, idx = decode._top_k(x, k)
+        want_vals, want_idx = torch.sort(x, dim=-1, descending=True, stable=True)
+        assert torch.equal(idx, want_idx[:, :k])
+        assert torch.equal(vals, want_vals[:, :k])

@@ -31,6 +31,36 @@ def test_stage_bounds_identical(p, max_new):
     assert pt_decode._stage_bounds(p, max_new, 448) == jax_decode._stage_bounds(p, max_new, 448)
 
 
+def _ranking_rows(case: str) -> np.ndarray:
+    rng = np.random.default_rng(21)
+    if case == "beam_step":  # K x vocab log-probabilities, suppressed rows, runs of ties
+        x = np.log(rng.dirichlet(np.ones(5 * 200), size=4)).astype(np.float32)
+        x[:, ::7] = -1e9
+        x[0, 100:140] = x[0, 5]
+        x[2] = np.round(x[2])
+        return x
+    # the floats' edge cases
+    row = [0.0, -0.0, 0.0, -0.0, 1.0, np.inf, -np.inf, -1e9, -1e9, 1.0, np.nan, -0.0, 2.0, -3.0]
+    return np.array([row, row[::-1], list(rng.permutation(row))], np.float32)
+
+
+@pytest.mark.parametrize("k", [1, 10, 14])
+@pytest.mark.parametrize("case", ["beam_step", "edges"])
+def test_top_k_is_the_head_of_a_stable_sort_and_of_jax_top_k(case, k):
+    """The port's top-k takes the first k of a stable descending sort
+    (ties to the lower index, NaNs first, -0.0 equal to 0.0) without the
+    sort; without NaNs that is also ``jax.lax.top_k``'s order."""
+    x = _ranking_rows(case)
+    k = min(k, x.shape[1])
+    vals, idx = pt_decode._top_k(torch.from_numpy(x), k)
+    want_vals, want_idx = torch.sort(torch.from_numpy(x), dim=-1, descending=True, stable=True)
+    assert torch.equal(idx, want_idx[:, :k])
+    assert np.array_equal(vals.numpy().view(np.int32), want_vals[:, :k].numpy().view(np.int32))
+    if not np.isnan(x).any():
+        jvals, jidx = jax.lax.top_k(jnp.asarray(x), k)
+        assert np.array_equal(idx.numpy(), np.asarray(jidx))
+
+
 def test_timestamp_rules_match_jax():
     """Every rule state (text, single and paired timestamps, first step)
     on the same log-probabilities."""

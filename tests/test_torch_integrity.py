@@ -31,6 +31,7 @@ from modular_audio_pipeline_tpu_torch.runtime.integrity import (
     put_verified,
     put_verified_tree,
 )
+from modular_audio_pipeline_tpu_torch.utils import SHIPPED_WEIGHTS
 
 # odd sizes: a 1- or 2-byte buffer that is not a whole number of words
 SIZES = (0, 1, 3, 7, 33, 1001)
@@ -295,7 +296,7 @@ class TestDefectsNotCopied:
         monkeypatch.setattr(transcriber, "put_verified_tree", spy)
         backend = transcriber.TorchWhisperBackend(
             "tiny", device="cpu",
-            weights_path=str(transcriber.SHIPPED_WEIGHTS / "whisper-tiny-synth-proxy"))
+            weights_path=str(SHIPPED_WEIGHTS / "whisper-tiny-synth-proxy"))
         backend.device = torch.device("cuda")  # the branch a card takes
         backend.load()
         assert seen["dtypes"] == {"torch.bfloat16"}

@@ -4,14 +4,23 @@ package's on the CPU.
 The port builds its own copy of the C++ sources (``runtime/native/``)
 into ``modular_audio_pipeline_tpu_torch/_build/`` under a file lock. Its
 FLAC and MP3 decodes equal the JAX package's library's to the bit, on the
-fixtures of tests/test_flac.py and tests/test_mp3.py (MP3 only where those
-tests find libmp3lame and libmpg123, skipped as they skip); its DTW
-backtrace equals the port's Python one; four processes building at once
-all load one library. ``MediaHandler`` discovers, validates and converts
-as the JAX package's does: converted WAVs are equal byte for byte.
+fixtures of tests/test_flac.py and tests/test_mp3.py (MP3 only where
+libmp3lame and libmpg123 load); its DTW backtrace equals the port's Python
+one; four processes building at once all load one library.
+``MediaHandler`` discovers, validates and converts as the JAX package's
+does: converted WAVs are equal byte for byte.
+
+The JAX package's libraries are obtained in the tests, not at import
+(``torch_jax_native.load_jax_native``): processes that import at once
+could otherwise catch one another's half-written cache file. The tests
+skip only where g++ (or, for MP3, a codec library; for containers, the
+system libav) is absent, and fail if the core library does not load
+although g++ exists.
 """
 
+import ctypes
 import json
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -20,7 +29,8 @@ import numpy as np
 import pytest
 from flac_ref import encode_flac
 from test_flac import make_pcm
-from test_mp3 import lame_encode, needs_codecs, speechy, tone, transient
+from test_mp3 import lame_encode, speechy, tone, transient
+from torch_jax_native import load_jax_native
 
 from modular_audio_pipeline_tpu import audio_io as jio
 from modular_audio_pipeline_tpu.config import PipelineConfig as JaxConfig
@@ -41,8 +51,30 @@ from modular_audio_pipeline_tpu_torch.runtime import native_lib
 ROOT = Path(__file__).resolve().parents[1]
 SR = 16000
 
-pytestmark = pytest.mark.skipif(not jax_native.have_native(),
-                                reason="native toolchain unavailable")
+pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
+                                reason="no C++ toolchain (g++ not found)")
+
+
+def _loads(name: str) -> bool:
+    try:
+        ctypes.CDLL(name)
+        return True
+    except OSError:
+        return False
+
+
+needs_codecs = pytest.mark.skipif(
+    not (_loads("libmp3lame.so.0") and _loads("libmpg123.so.0")),
+    reason="libmp3lame.so.0 or libmpg123.so.0 does not load")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_library():
+    """The JAX package's native library in this process
+    (``torch_jax_native.load_jax_native``); it must load where g++ exists."""
+    lib = load_jax_native()
+    assert lib is not None, "the JAX package's native library did not build or load"
+    return lib
 
 
 def test_the_ports_library_is_its_own_build():
@@ -199,15 +231,15 @@ def test_conversions_equal_jax(tmp_path):
         sorted(JaxMediaHandler.AUDIO_EXTENSIONS))
 
 
-@pytest.mark.skipif(not jax_native.have_native_av(),
-                    reason="libav shim unavailable (no system libav)")
 @pytest.mark.parametrize("ext,codec", [(".ogg", "libvorbis"), (".m4a", "aac")])
 def test_libav_shim_decodes_and_converts_equal_jax(tmp_path, ext, codec):
     """Where the system libav libraries are installed, the port's copy of
     the shim decodes, probes and converts a container as the JAX
     package's does (fixtures encoded by the JAX package's shim; skipped
     where it has no such encoder, as tests/test_av_ingest.py skips)."""
-    lib = jax_native.load_native_av()
+    lib = load_jax_native(av=True)
+    if lib is None:
+        pytest.skip("libav shim unavailable (no system libav)")
     if not lib.av_shim_have_encoder(codec.encode()):
         pytest.skip(f"no {codec} encoder in this libav")
     media = tmp_path / "media"
