@@ -1267,26 +1267,26 @@ def phase_serving(torch, tmp: Path, seconds: float):
     if not tokens:
         raise AssertionError("serving: no decode batch was recorded")
 
-    from modular_audio_pipeline_tpu_torch.runtime import integrity
+    from modular_audio_pipeline_tpu_torch.runtime import integrity, tracing
 
     wrappers = _reset_launches()
     fetches = integrity.counts["fetch"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    result = pipe.process(audio, SR)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with tracing.record() as rec:
+        result = pipe.process(audio, SR)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
     fetches = integrity.counts["fetch"] - fetches
     SHARED["serving"] = result
     SHARED["serving_tokens"] = tokens
     SHARED["serving_tokenizer"] = tokenizer_signature(pipe.backend.tokenizer)
-    stages = dict(pipe.last_timings)
     ds = result["decode_stats"]
     log(f"serving: wall {wall:.3f} s, realtime x{seconds / wall:.1f}, kept "
         f"{result['kept_duration']:.3f} s, decode {ds}, segments {len(result['segments'])}, "
-        f"turns {len(result['diarization'])}, launches {launches}, host seconds by stage "
-        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+        f"turns {len(result['diarization'])}, launches {launches}, decode steps "
+        f"{rec.counters['decode.steps']}, spans {rec.summary()}")
 
     if not isinstance(pipe._vad_model, ConvVAD):
         raise AssertionError(f"serving: the VAD resolved to {pipe._vad_model!r}, not the ConvVAD")
@@ -1333,7 +1333,7 @@ def phase_serving(torch, tmp: Path, seconds: float):
     return launches, {"wall_s": wall, "realtime_x": seconds / wall,
                       "kept_duration": result["kept_duration"], "decode_stats": ds,
                       "segments": len(result["segments"]), "turns": len(result["diarization"]),
-                      "host_s_by_stage": stages, "device_busy_share": busy,
+                      "spans": rec.summary(), "device_busy_share": busy,
                       "top_kernels_ms": top, "flash_fma_ms": mine["flash_fwd_fma"][0],
                       "run_file_segments": len(doc["segments"]), "proxy": proxy,
                       "verified_fetches": fetches}
@@ -1501,25 +1501,6 @@ def masknet_operations(net, n_samples: int):
 
 
 @contextlib.contextmanager
-def count_beam_steps(counter: list):
-    """Count the beam decode's steps: its decoder calls with an ancestry
-    table (the prefill and the word alignment pass none)."""
-    from modular_audio_pipeline_tpu_torch.models.whisper import decode
-
-    real = decode.decoder_forward
-
-    def spy(*args, **kw):
-        counter[0] += kw.get("anc") is not None
-        return real(*args, **kw)
-
-    decode.decoder_forward = spy
-    try:
-        yield
-    finally:
-        decode.decoder_forward = real
-
-
-@contextlib.contextmanager
 def utilization(samples: list):
     """The card's utilization.gpu (the share of each sample period in which
     a kernel ran), sampled by nvidia-smi every 100 ms inside the block."""
@@ -1544,6 +1525,7 @@ def phase_separation(torch, tmp: Path, seconds: float):
     from modular_audio_pipeline_tpu_torch.models.separation.unet import MaskUNet
     from modular_audio_pipeline_tpu_torch.ops.bucketing import bucket_length
     from modular_audio_pipeline_tpu_torch.ops.music import analyze_audio_content
+    from modular_audio_pipeline_tpu_torch.runtime import tracing
     from modular_audio_pipeline_tpu_torch.serving import ServingPipeline
 
     mix = music_podcast(seconds)
@@ -1566,22 +1548,20 @@ def phase_separation(torch, tmp: Path, seconds: float):
     log(f"separation: warm-up run {time.perf_counter() - t0:.2f} s")
 
     busy: list = []
-    steps_seen = [0]
     wrappers = _reset_launches()
     torch.cuda.synchronize()
-    with utilization(busy), count_beam_steps(steps_seen):
+    with utilization(busy), tracing.record() as rec:
         t0 = time.perf_counter()
         result = pipe.process(audio, SR)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
-    stages = dict(pipe.last_timings)
     ds = result["decode_stats"]
     busy_share = sum(busy) / len(busy) if busy else None
     log(f"separation: wall {wall:.3f} s, realtime x{seconds / wall:.1f}, kept "
         f"{result['kept_duration']:.3f} s, decode {ds}, segments {len(result['segments'])}, "
-        f"launches {launches}, card utilization {busy_share} over {len(busy)} samples, host "
-        "seconds by stage " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+        f"launches {launches}, card utilization {busy_share} over {len(busy)} samples, "
+        f"spans {rec.summary()}")
 
     if not (analysis["has_music"] and analysis["confidence"] > 0.5 and result["vocal_separation"]):
         raise AssertionError(f"separation: auto-detect did not choose separation: {analysis}")
@@ -1592,7 +1572,7 @@ def phase_separation(torch, tmp: Path, seconds: float):
     _check_serving(result, seconds, "separation")
     n_batches = math.ceil(ds["n_windows"] / pipe.backend.batch_size)
     layers = pipe.backend.dims.n_text_layer
-    steps = steps_seen[0]
+    steps = rec.counters["decode.steps"]  # the beam loop's steps
     enc_layers = pipe.backend.dims.n_audio_layer
     if launches["flash_attention"] < enc_layers * n_batches:
         raise AssertionError(f"separation: {launches['flash_attention']} flash launches for "
@@ -1642,7 +1622,7 @@ def phase_separation(torch, tmp: Path, seconds: float):
                       "masknet_padded_spectrogram": list(padded),
                       "masknet_tflop_per_chunk": ops / 1e12, "masknet_chunks": n_chunks,
                       "masknet_forward_ms": forward_ms, "masknet_chunk_ms": chunk_ms,
-                      "host_s_by_stage": stages, "card_utilization": busy_share,
+                      "spans": rec.summary(), "card_utilization": busy_share,
                       "utilization_samples": len(busy),
                       "run_file_s": out.metadata["wall_time_s"], "card_vs_cpu": checks,
                       "flash_encoder_batch8": encoder, "ancestry_batch8": ancestry}

@@ -38,6 +38,7 @@ from .audio_io import get_buffer, read_wav
 from .config import RetryConfig
 from .exceptions import DiarizationError
 from .protocols import DiarizationSegment, DiarizerProtocol
+from .runtime import tracing
 from .utils import get_audio_duration, resolve_device, retry_with_backoff
 
 logger = logging.getLogger(__name__)
@@ -181,6 +182,7 @@ class SpeakerDiarizer(DiarizerProtocol):
                     f[s : e + 1] = not value
         return f
 
+    @tracing.spanned("diarization.segmentation")
     def _segmentation_regions(self, audio: torch.Tensor, sr: int) -> List[tuple]:
         """Speech regions from the segmentation model: 10 s windows at a
         1 s step, overlap-aggregated per-speaker activities, speech where
@@ -284,6 +286,7 @@ class SpeakerDiarizer(DiarizerProtocol):
                 out.append((start, start + win))
         return out
 
+    @tracing.spanned("diarization.embedding")
     def _embed_device(self, dev_audio: torch.Tensor, spans: List[tuple], sr: int) -> np.ndarray:
         """Embed subsegments gathered on the device from the timeline's
         16-sample blocks (span starts lie on 10 ms frames and 0.75 s hops,
@@ -376,6 +379,7 @@ class SpeakerDiarizer(DiarizerProtocol):
         labels = self._cluster(embeddings, min_speakers, max_speakers)
         return self._turns_from_labels(spans, labels, sr), self._voiceprints(embeddings, labels)
 
+    @tracing.spanned("diarization.clustering")
     def _cluster(self, embeddings: np.ndarray, min_speakers: int, max_speakers: int):
         from .models.diarization.clustering import cluster_embeddings
 

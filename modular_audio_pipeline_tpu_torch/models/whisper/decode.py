@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...runtime import tracing
 from ...runtime.integrity import checksum_device, fetch_verified_many
 from .config import WhisperDims
 from .model import (
@@ -85,6 +86,7 @@ class DecodeResult(NamedTuple):
     no_speech_probs: np.ndarray  # [B]
 
 
+@tracing.spanned("whisper.encode")
 def encode_audio_kv(params, dims: WhisperDims, mel: torch.Tensor):
     """mel [B, n_mels, 3000] -> (xa_k, xa_v), each [L, B, H, 1500, hd]."""
     return cross_kv(params, dims, encoder_forward(params, dims, mel))
@@ -279,6 +281,7 @@ def _greedy_stage(params, dims, xa_k, xa_v, st, suppress, blank, o, stage_end):
     log-probability still reads the unscaled ``lp``."""
     eot, ts_begin, temperature = o["eot"], o["ts_begin"], o["temperature"]
     while st["i"] < stage_end and not bool(st["done"].all()):
+        tracing.count("decode.steps")
         i = st["i"]
         lp = _filtered_logprobs(st["prev_logits"], i, st["last"], st["penult"],
                                 st["max_ts"], suppress, blank, o)
@@ -365,6 +368,7 @@ def _beam_stage(params, dims, xa_k, xa_v, st, suppress, blank, o, stage_end):
     own = torch.arange(k, dtype=torch.int32, device=dev)[None, :]
 
     while st["i"] < stage_end and not bool((st["fin_cnt"] >= pool).all()):
+        tracing.count("decode.steps")
         i = st["i"]
         cache = st["cache"]
         lp = _filtered_logprobs(st["prev_logits"], i, st["last"], st["penult"],
@@ -451,6 +455,7 @@ def build_initial_tokens(tokenizer: WhisperTokenizer, opts: DecodeOptions
     return initial, len(initial) - len(sot_seq)
 
 
+@tracing.spanned("whisper.decode")
 def _decode_pending(params, dims, tokenizer, mel, opts, rng=None, audio_kv=None
                     ) -> Dict[str, Any]:
     """Encode + decode one batch; returns device tensors for finalize_decode."""
@@ -507,6 +512,7 @@ def _decode_pending(params, dims, tokenizer, mel, opts, rng=None, audio_kv=None
             "beam": False, "b": b, "eot": tokenizer.eot}
 
 
+@tracing.spanned("whisper.fetch")
 def finalize_decode(pending: Dict[str, Any]) -> DecodeResult:
     """Host side of a decode: the verified fetch of the decode's buffers
     (against the checksums ``chk`` computed on the device; a pending dict

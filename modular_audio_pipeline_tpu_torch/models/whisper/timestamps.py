@@ -29,6 +29,7 @@ import torch
 
 from .config import WhisperDims
 from ...parallel.sharding import gather_from_model, model_group
+from ...runtime import tracing
 from .model import KVCache, decoder_forward, local_heads
 from .tokenizer import WhisperTokenizer
 
@@ -115,6 +116,7 @@ def _median7(slices: Sequence[torch.Tensor]) -> torch.Tensor:
     return v[3]  # median of the 7 reals = rank 3 of the padded 8
 
 
+@tracing.spanned("words.matrix")
 def _alignment_matrix_impl(params, seq: torch.Tensor, xa_k, xa_v, dims: WhisperDims
                            ) -> torch.Tensor:
     """Teacher-forced cross-attention of ``seq [B, S]`` -> alignment matrix
@@ -167,53 +169,56 @@ def dtw_cols_batched(cost: torch.Tensor, lens) -> np.ndarray:
     cost = cost.float()
     n_diag = s + t - 1
 
-    # skew: sk[d, b, 1 + i] = cost[b, i, d - i] (anti-diagonal layout), with
-    # a wall in column 0 (accumulator row 0) and wherever d - i leaves [0, T)
-    j_idx = torch.arange(n_diag, device=dev)[None, :] - torch.arange(s, device=dev)[:, None]
-    valid = (j_idx >= 0) & (j_idx < t)  # [S, S+T-1]
-    sk = torch.gather(cost, 2, j_idx.clamp(0, t - 1)[None].expand(b, -1, -1))
-    sk = torch.where(valid[None], sk, torch.full((), _BIG, device=dev))
-    steps = torch.full((n_diag, b, s + 1), _BIG, device=dev)
-    steps[:, :, 1:] = sk.permute(2, 0, 1)
-    del sk
+    with tracing.span("words.dtw"):  # the forward pass, then the moves to the host
+        # skew: sk[d, b, 1 + i] = cost[b, i, d - i] (anti-diagonal layout), with
+        # a wall in column 0 (accumulator row 0) and wherever d - i leaves [0, T)
+        j_idx = (torch.arange(n_diag, device=dev)[None, :]
+                 - torch.arange(s, device=dev)[:, None])
+        valid = (j_idx >= 0) & (j_idx < t)  # [S, S+T-1]
+        sk = torch.gather(cost, 2, j_idx.clamp(0, t - 1)[None].expand(b, -1, -1))
+        sk = torch.where(valid[None], sk, torch.full((), _BIG, device=dev))
+        steps = torch.full((n_diag, b, s + 1), _BIG, device=dev)
+        steps[:, :, 1:] = sk.permute(2, 0, 1)
+        del sk
 
-    # Diagonal buffers carry one more wall in front, so "the row above" is a
-    # view shifted by one: buf[:, 1 + i'] is the accumulator at row i'.
-    pp = torch.full((b, s + 2), _BIG, device=dev)
-    pp[:, 1] = 0.0  # acc[0, 0] = 0
-    p = torch.full((b, s + 2), _BIG, device=dev)  # diagonal 1: walls only
-    big = torch.full((), _BIG, device=dev)
-    # up_lt[da]: "up" beats "diagonal"; left_lt[da]: "left" beats both.
-    # Strict comparisons keep the order diagonal > up > left on ties.
-    up_lt = torch.zeros((s + t + 1, b, s + 1), dtype=torch.bool, device=dev)
-    left_lt = torch.zeros_like(up_lt)
-    new = torch.full_like(p, _BIG)  # three buffers rotate; column 0 stays a wall
-    for d in range(n_diag):
-        da = d + 2
-        c0, c1, c2 = pp[:, : s + 1], p[:, : s + 1], p[:, 1:]
-        torch.lt(c1, c0, out=up_lt[da])
-        best = torch.minimum(c0, c1)
-        torch.lt(c2, best, out=left_lt[da])
-        best = torch.minimum(best, c2)
-        # cells outside the matrix carry a wall in `steps`: wall + best
-        # rounds back to the wall, and the cap keeps every cell finite
-        torch.minimum(steps[d] + best, big, out=new[:, 1:])
-        pp, p, new = p, new, pp
-    moves = torch.where(left_lt, 2, up_lt.to(torch.int8)).to(torch.int8).cpu().numpy()
+        # Diagonal buffers carry one more wall in front, so "the row above" is a
+        # view shifted by one: buf[:, 1 + i'] is the accumulator at row i'.
+        pp = torch.full((b, s + 2), _BIG, device=dev)
+        pp[:, 1] = 0.0  # acc[0, 0] = 0
+        p = torch.full((b, s + 2), _BIG, device=dev)  # diagonal 1: walls only
+        big = torch.full((), _BIG, device=dev)
+        # up_lt[da]: "up" beats "diagonal"; left_lt[da]: "left" beats both.
+        # Strict comparisons keep the order diagonal > up > left on ties.
+        up_lt = torch.zeros((s + t + 1, b, s + 1), dtype=torch.bool, device=dev)
+        left_lt = torch.zeros_like(up_lt)
+        new = torch.full_like(p, _BIG)  # three buffers rotate; column 0 stays a wall
+        for d in range(n_diag):
+            da = d + 2
+            c0, c1, c2 = pp[:, : s + 1], p[:, : s + 1], p[:, 1:]
+            torch.lt(c1, c0, out=up_lt[da])
+            best = torch.minimum(c0, c1)
+            torch.lt(c2, best, out=left_lt[da])
+            best = torch.minimum(best, c2)
+            # cells outside the matrix carry a wall in `steps`: wall + best
+            # rounds back to the wall, and the cap keeps every cell finite
+            torch.minimum(steps[d] + best, big, out=new[:, 1:])
+            pp, p, new = p, new, pp
+        moves = torch.where(left_lt, 2, up_lt.to(torch.int8)).to(torch.int8).cpu().numpy()
 
     # backtrace on the host: all windows walk in lockstep, frozen when done
-    bi = np.arange(b)
-    ii = np.asarray(torch.as_tensor(lens).cpu(), dtype=np.int64).copy()
-    jj = np.full((b,), t, np.int64)
-    cols = np.zeros((b, s), np.int32)
-    while True:
-        active = (ii > 0) & (jj > 0)
-        if not active.any():
-            return cols
-        move = moves[ii + jj, bi, ii]
-        cols[bi[active], ii[active] - 1] = jj[active] - 1
-        ii = np.where(active & (move != 2), ii - 1, ii)
-        jj = np.where(active & (move != 1), jj - 1, jj)
+    with tracing.span("words.backtrace"):
+        bi = np.arange(b)
+        ii = np.asarray(torch.as_tensor(lens).cpu(), dtype=np.int64).copy()
+        jj = np.full((b,), t, np.int64)
+        cols = np.zeros((b, s), np.int32)
+        while True:
+            active = (ii > 0) & (jj > 0)
+            if not active.any():
+                return cols
+            move = moves[ii + jj, bi, ii]
+            cols[bi[active], ii[active] - 1] = jj[active] - 1
+            ii = np.where(active & (move != 2), ii - 1, ii)
+            jj = np.where(active & (move != 1), jj - 1, jj)
 
 
 def _align_dtw(params, dims: WhisperDims, seq, xa_k, xa_v, lens, prefix_len: int,

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from .protocols import TimestampMapping
+from .runtime import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -250,9 +251,6 @@ class ServingPipeline:
         self._vad_threshold: Optional[float] = None
         self._vad_resolved = False
         self._diarizer = None
-        # host seconds of each stage of the last process() call; work a
-        # stage leaves queued on the device counts in the next stage
-        self.last_timings: Dict[str, float] = {}
 
     def _resolve_vad(self) -> None:
         """Load the ``vad-silero`` bundle (the ConvVAD or a converted Silero
@@ -276,7 +274,12 @@ class ServingPipeline:
 
     # -- stages -------------------------------------------------------------
 
+    @tracing.spanned("serving.process")
     def process(self, audio: np.ndarray, sr: int) -> Dict[str, Any]:
+        """One recording through every stage; each stage runs in a span
+        (``runtime/tracing.py``): ``serving.separation``, ``serving.dsp``,
+        ``serving.vad``, ``serving.gather``, ``whisper`` and
+        ``diarization``."""
         from .models.vad_net import ConvVAD, SileroVAD
         from .models.whisper.decode import (
             DecodeOptions,
@@ -293,16 +296,6 @@ class ServingPipeline:
 
         cfg = self.config
         dev = self.device
-        timings: Dict[str, float] = {}
-        self.last_timings = timings
-        t_stage = time.perf_counter()
-
-        def lap(name: str) -> None:
-            nonlocal t_stage
-            now = time.perf_counter()
-            timings[name] = timings.get(name, 0.0) + now - t_stage
-            t_stage = now
-
         self.backend.load()
         duration = len(audio) / sr
         audio = np.asarray(audio)
@@ -317,98 +310,98 @@ class ServingPipeline:
             audio = resample_poly(audio, sr, target_sr)
             sr = target_sr
 
-        lap("dsp")
         separated = separate_on_device = False
         if cfg.vocal_separation.enabled:
-            separated, separate_on_device, audio = self._separate_host(audio, sr)
-            lap("separation")
+            with tracing.span("serving.separation"):
+                separated, separate_on_device, audio = self._separate_host(audio, sr)
 
-        if audio.dtype != np.int16:  # int16 stays raw: half the upload bytes
-            audio = audio.astype(np.float32, copy=False)
-        padded, n_valid = pad_to_bucket(audio, sr)
-        dev_audio = torch.from_numpy(np.ascontiguousarray(padded)).to(dev)
-        dev_f32 = (dev_audio if dev_audio.dtype == torch.float32
-                   else dev_audio.float() * (1.0 / 32768.0))
+        with tracing.span("serving.dsp"):  # the upload
+            if audio.dtype != np.int16:  # int16 stays raw: half the upload bytes
+                audio = audio.astype(np.float32, copy=False)
+            padded, n_valid = pad_to_bucket(audio, sr)
+            dev_audio = torch.from_numpy(np.ascontiguousarray(padded)).to(dev)
+            dev_f32 = (dev_audio if dev_audio.dtype == torch.float32
+                       else dev_audio.float() * (1.0 / 32768.0))
         if separate_on_device:
-            dev_f32 = dev_audio = self._separate_device(dev_f32, n_valid, sr)
-            lap("separation")
+            with tracing.span("serving.separation"):
+                dev_f32 = dev_audio = self._separate_device(dev_f32, n_valid, sr)
 
-        # noise-profile position: device features, host percentile decision
-        noise_start = 0
-        denoise = cfg.noise_reduction.enabled
-        if denoise and cfg.noise_reduction.auto_detect_noise:
-            run = longest_noise_run(dev_f32, n_valid, sr)
-            if run is not None:
-                noise_start = min(run[0], max(0, n_valid - 2 * sr))
-        del dev_f32
+        with tracing.span("serving.dsp"):
+            # noise-profile position: device features, host percentile decision
+            noise_start = 0
+            denoise = cfg.noise_reduction.enabled
+            if denoise and cfg.noise_reduction.auto_detect_noise:
+                run = longest_noise_run(dev_f32, n_valid, sr)
+                if run is not None:
+                    noise_start = min(run[0], max(0, n_valid - 2 * sr))
+            del dev_f32
 
-        self._resolve_vad()
-        conv_feats = isinstance(self._vad_model, ConvVAD)
-        prop = cfg.noise_reduction.prop_decrease
-        # sections align to the 512-sample VAD window and the 1600-sample
-        # loudness sub-block (lcm 12800), so per-section features and
-        # sub-blocks concatenate to the whole-file framing
-        section = max(12800, (_DSP_SECTION_S * sr // 12800) * 12800)
-        guarded = torch.cat([dev_audio.new_zeros((sr,)), dev_audio])
-        outs = []
-        for s0 in range(0, len(padded), section):
-            ns = noise_start - s0
-            if len(padded) > section and not (0 <= ns < section - 2 * sr):
-                ns = 0  # the profile lies in another section: this one's start
-            outs.append(_dsp_stats(guarded[s0 : s0 + sr + section], ns, sr, denoise, prop,
-                                   conv_feats))
-        del guarded, dev_audio
-        procs, pks, kbs, sqs, bds, fds, vfs = zip(*outs)
-        del outs
-        dev_proc = torch.cat(procs) if len(procs) > 1 else procs[0]
-        block_sq_d = torch.cat(sqs)
-        bands_d = torch.cat(bds)
-        frame_db_d = torch.cat(fds)
-        vfeats_d = torch.cat(vfs)
-        peaks = [float(p) for p in torch.stack(pks).cpu()]
-        ksubs = torch.cat(kbs).cpu().numpy()
-        del procs
+            self._resolve_vad()
+            conv_feats = isinstance(self._vad_model, ConvVAD)
+            prop = cfg.noise_reduction.prop_decrease
+            # sections align to the 512-sample VAD window and the 1600-sample
+            # loudness sub-block (lcm 12800), so per-section features and
+            # sub-blocks concatenate to the whole-file framing
+            section = max(12800, (_DSP_SECTION_S * sr // 12800) * 12800)
+            guarded = torch.cat([dev_audio.new_zeros((sr,)), dev_audio])
+            outs = []
+            for s0 in range(0, len(padded), section):
+                ns = noise_start - s0
+                if len(padded) > section and not (0 <= ns < section - 2 * sr):
+                    ns = 0  # the profile lies in another section: this one's start
+                outs.append(_dsp_stats(guarded[s0 : s0 + sr + section], ns, sr, denoise, prop,
+                                       conv_feats))
+            del guarded, dev_audio
+            procs, pks, kbs, sqs, bds, fds, vfs = zip(*outs)
+            del outs
+            dev_proc = torch.cat(procs) if len(procs) > 1 else procs[0]
+            block_sq_d = torch.cat(sqs)
+            bands_d = torch.cat(bds)
+            frame_db_d = torch.cat(fds)
+            vfeats_d = torch.cat(vfs)
+            peaks = [float(p) for p in torch.stack(pks).cpu()]
+            ksubs = torch.cat(kbs).cpu().numpy()
+            del procs
 
-        gain, lufs = _whole_file_gain(peaks, _blocks_from_subblocks(ksubs))
-        if np.isfinite(lufs):
-            logger.debug("Whole-file loudness %.2f LUFS, gain %.4f", lufs, gain)
-        n_valid_ms = n_valid // _BLOCK
-        # statistics were computed before the gain: rescale on the host
-        g2db = 20.0 * np.log10(max(gain, 1e-12))
-        block_sq = block_sq_d.cpu().numpy() * gain * gain
-        # VAD statistics of valid frames only: the energy VAD's noise floor
-        # must not see the bucket's zero padding
-        n_valid_frames = n_valid // (sr * _VAD_FRAME_MS // 1000)
-        lap("dsp")
+            gain, lufs = _whole_file_gain(peaks, _blocks_from_subblocks(ksubs))
+            if np.isfinite(lufs):
+                logger.debug("Whole-file loudness %.2f LUFS, gain %.4f", lufs, gain)
+            n_valid_ms = n_valid // _BLOCK
+            # statistics were computed before the gain: rescale on the host
+            g2db = 20.0 * np.log10(max(gain, 1e-12))
+            block_sq = block_sq_d.cpu().numpy() * gain * gain
+            # VAD statistics of valid frames only: the energy VAD's noise floor
+            # must not see the bucket's zero padding
+            n_valid_frames = n_valid // (sr * _VAD_FRAME_MS // 1000)
 
         # --- VAD probabilities: trained DNN on device, energy fallback ------
-        dnn_probs: Optional[np.ndarray] = None
-        bands = frame_db = webrtc_keep = None
-        if cfg.vad.enabled and isinstance(self._vad_model, ConvVAD):
-            dnn_probs = _conv_vad_probs(self._vad_model, vfeats_d, gain).cpu().numpy()
-            dnn_probs = dnn_probs[:n_valid_frames]
-        elif cfg.vad.enabled and isinstance(self._vad_model, SileroVAD):
-            h = c = torch.zeros(SileroVAD.HID, device=dev)
-            tail = torch.zeros(SileroVAD.CONTEXT, device=dev)
-            g_dev = torch.tensor(gain, dtype=torch.float32, device=dev)
-            parts = []
-            for s0 in range(0, len(padded), section):
-                p_, h, c, tail = _silero_section(self._vad_model, dev_proc[s0 : s0 + section],
-                                                 g_dev, h, c, tail)
-                parts.append(p_)
-            dnn_probs = torch.cat(parts).cpu().numpy()[:n_valid_frames]
-        elif cfg.vad.enabled and cfg.vad.provider == "webrtc":
-            webrtc_keep = self._webrtc_keep(dev_proc, n_valid, sr, gain, n_valid_ms)
-        elif cfg.vad.enabled:
-            bands = bands_d.cpu().numpy()[:n_valid_frames] * gain * gain
-            frame_db = frame_db_d.cpu().numpy()[:n_valid_frames] + g2db
+        with tracing.span("serving.vad"):
+            dnn_probs: Optional[np.ndarray] = None
+            bands = frame_db = webrtc_keep = None
+            if cfg.vad.enabled and isinstance(self._vad_model, ConvVAD):
+                dnn_probs = _conv_vad_probs(self._vad_model, vfeats_d, gain).cpu().numpy()
+                dnn_probs = dnn_probs[:n_valid_frames]
+            elif cfg.vad.enabled and isinstance(self._vad_model, SileroVAD):
+                h = c = torch.zeros(SileroVAD.HID, device=dev)
+                tail = torch.zeros(SileroVAD.CONTEXT, device=dev)
+                g_dev = torch.tensor(gain, dtype=torch.float32, device=dev)
+                parts = []
+                for s0 in range(0, len(padded), section):
+                    p_, h, c, tail = _silero_section(self._vad_model, dev_proc[s0 : s0 + section],
+                                                     g_dev, h, c, tail)
+                    parts.append(p_)
+                dnn_probs = torch.cat(parts).cpu().numpy()[:n_valid_frames]
+            elif cfg.vad.enabled and cfg.vad.provider == "webrtc":
+                webrtc_keep = self._webrtc_keep(dev_proc, n_valid, sr, gain, n_valid_ms)
+            elif cfg.vad.enabled:
+                bands = bands_d.cpu().numpy()[:n_valid_frames] * gain * gain
+                frame_db = frame_db_d.cpu().numpy()[:n_valid_frames] + g2db
 
-        # --- host decisions: silence intervals ∩ VAD speech -----------------
-        keep_ms, mappings = self._keep_intervals(
-            block_sq, bands, frame_db, n_valid_ms, sr, dnn_probs=dnn_probs,
-            vad_keep=webrtc_keep,
-        )
-        lap("vad")
+            # --- host decisions: silence intervals ∩ VAD speech -----------------
+            keep_ms, mappings = self._keep_intervals(
+                block_sq, bands, frame_db, n_valid_ms, sr, dnn_probs=dnn_probs,
+                vad_keep=webrtc_keep,
+            )
         if not keep_ms:
             # the full path's schema, so callers never switch on it
             return {
@@ -421,90 +414,90 @@ class ServingPipeline:
             }
 
         # --- device: gather kept blocks into 30 s windows -------------------
-        window_samples = int(30.0 * sr)
-        win_blocks = window_samples // _BLOCK
-        block_ids = np.concatenate([np.arange(s, e, dtype=np.int64) for s, e in keep_ms])
-        kept_ms_total = len(block_ids)
-        n_win = max(1, int(np.ceil(kept_ms_total / win_blocks)))
-        # window-count bucket: the padded count shapes the gather, the
-        # decode batches and the diarization timeline
-        pad_win = next((c for c in _BATCH_BUCKETS if c >= n_win), ((n_win + 31) // 32) * 32)
-        # padding ids point into the zeros beyond n_valid
-        pad_block = min(len(padded) // _BLOCK - 1, n_valid_ms)
-        ids_padded = np.full(pad_win * win_blocks, pad_block, dtype=np.int64)
-        ids_padded[:kept_ms_total] = block_ids
-        g = torch.tensor(gain, dtype=torch.float32, device=dev)
-        ids = torch.from_numpy(ids_padded).to(dev)
-        dev_windows = (dev_proc.reshape(-1, _BLOCK)[ids] * g).reshape(-1, window_samples)
-        del dev_proc, ids
-        kept_duration = kept_ms_total * _BLOCK / sr
-        lap("gather")
+        with tracing.span("serving.gather"):
+            window_samples = int(30.0 * sr)
+            win_blocks = window_samples // _BLOCK
+            block_ids = np.concatenate([np.arange(s, e, dtype=np.int64) for s, e in keep_ms])
+            kept_ms_total = len(block_ids)
+            n_win = max(1, int(np.ceil(kept_ms_total / win_blocks)))
+            # window-count bucket: the padded count shapes the gather, the
+            # decode batches and the diarization timeline
+            pad_win = next((c for c in _BATCH_BUCKETS if c >= n_win), ((n_win + 31) // 32) * 32)
+            # padding ids point into the zeros beyond n_valid
+            pad_block = min(len(padded) // _BLOCK - 1, n_valid_ms)
+            ids_padded = np.full(pad_win * win_blocks, pad_block, dtype=np.int64)
+            ids_padded[:kept_ms_total] = block_ids
+            g = torch.tensor(gain, dtype=torch.float32, device=dev)
+            ids = torch.from_numpy(ids_padded).to(dev)
+            dev_windows = (dev_proc.reshape(-1, _BLOCK)[ids] * g).reshape(-1, window_samples)
+            del dev_proc, ids
+            kept_duration = kept_ms_total * _BLOCK / sr
 
         # --- transcription --------------------------------------------------
-        backend = self.backend
-        language = backend.language
-        if language in (None, "", "auto"):
-            first_mel = log_mel(dev_windows[:1], n_mels=backend.dims.n_mels)
-            language, _ = detect_language(backend.params, backend.dims, backend.tokenizer,
-                                          first_mel)
-            logger.info("Detected language: %s", language)
+        with tracing.span("whisper"):
+            backend = self.backend
+            language = backend.language
+            if language in (None, "", "auto"):
+                first_mel = log_mel(dev_windows[:1], n_mels=backend.dims.n_mels)
+                language, _ = detect_language(backend.params, backend.dims, backend.tokenizer,
+                                              first_mel)
+                logger.info("Detected language: %s", language)
 
-        t = cfg.transcription
-        opts = DecodeOptions(
-            language=language,
-            task=t.task,
-            beam_size=t.beam_size,
-            temperature=t.temperature,
-            max_tokens=t.max_decode_tokens,
-            timestamps=True,
-            prompt_tokens=backend._prompt_tokens(),
-            patience=t.patience,
-            kv_int8=getattr(t, "kv_cache_dtype", "int8") == "int8",
-        )
-        bs = backend.batch_size
-        n_data = axis_size(backend.mesh, "data")
-        pending = []
-        for start in range(0, n_win, bs):
-            end = min(start + bs, pad_win)
-            rows = dev_windows[start:end]
-            short = (-rows.shape[0]) % n_data
-            if short:  # DP: pad to the data axis; the padded rows are discarded
-                rows = torch.cat([rows, rows.new_zeros((short, rows.shape[1]))])
-            rows, lo = backend._local_rows(rows)
-            mel = log_mel(rows, n_mels=backend.dims.n_mels)
-            audio_kv = None
-            if self.word_timestamps:
-                audio_kv = encode_audio_kv(backend.params, backend.dims, mel)
-            pending.append((start, end - start, _decode_pending(
-                backend.params, backend.dims, backend.tokenizer, mel, opts,
-                audio_kv=audio_kv), audio_kv, lo))
+            t = cfg.transcription
+            opts = DecodeOptions(
+                language=language,
+                task=t.task,
+                beam_size=t.beam_size,
+                temperature=t.temperature,
+                max_tokens=t.max_decode_tokens,
+                timestamps=True,
+                prompt_tokens=backend._prompt_tokens(),
+                patience=t.patience,
+                kv_int8=getattr(t, "kv_cache_dtype", "int8") == "int8",
+            )
+            bs = backend.batch_size
+            n_data = axis_size(backend.mesh, "data")
+            pending = []
+            for start in range(0, n_win, bs):
+                end = min(start + bs, pad_win)
+                rows = dev_windows[start:end]
+                short = (-rows.shape[0]) % n_data
+                if short:  # DP: pad to the data axis; the padded rows are discarded
+                    rows = torch.cat([rows, rows.new_zeros((short, rows.shape[1]))])
+                rows, lo = backend._local_rows(rows)
+                mel = log_mel(rows, n_mels=backend.dims.n_mels)
+                audio_kv = None
+                if self.word_timestamps:
+                    audio_kv = encode_audio_kv(backend.params, backend.dims, mel)
+                pending.append((start, end - start, _decode_pending(
+                    backend.params, backend.dims, backend.tokenizer, mel, opts,
+                    audio_kv=audio_kv), audio_kv, lo))
 
-        segments: List[Dict[str, Any]] = []
-        n_windows_decoded = 0
-        tokens_decoded = 0
-        eot = backend.tokenizer.eot
-        for start, b, p, audio_kv, lo in pending:
-            result = backend._gather_rows(finalize_decode(p))
-            align_jobs: List[tuple] = []
-            for i in range(min(b, n_win - start)):
-                toks = np.asarray(result.tokens[i])
-                eot_pos = np.nonzero(toks == eot)[0]
-                tokens_decoded += int(eot_pos[0]) + 1 if eot_pos.size else len(toks)
-                n_windows_decoded += 1
-                if backend._should_skip_window(float(result.no_speech_probs[i]),
-                                               float(result.avg_logprobs[i])):
-                    continue  # whisper's no-speech gate
-                offset = (start + i) * 30.0
-                win_dur = min(30.0, kept_duration - offset)
-                segs = backend._parse_window(result.tokens[i], float(result.avg_logprobs[i]),
-                                             offset, win_dur)
-                if self.word_timestamps and segs:
-                    align_jobs.append((segs, result.tokens[i], i, offset))
-                segments.extend(segs)
-            if align_jobs:
-                backend._attach_words_batch(align_jobs, audio_kv, opts, lo)
-        del pending
-        lap("whisper")
+            segments: List[Dict[str, Any]] = []
+            n_windows_decoded = 0
+            tokens_decoded = 0
+            eot = backend.tokenizer.eot
+            for start, b, p, audio_kv, lo in pending:
+                result = backend._gather_rows(finalize_decode(p))
+                align_jobs: List[tuple] = []
+                for i in range(min(b, n_win - start)):
+                    toks = np.asarray(result.tokens[i])
+                    eot_pos = np.nonzero(toks == eot)[0]
+                    tokens_decoded += int(eot_pos[0]) + 1 if eot_pos.size else len(toks)
+                    n_windows_decoded += 1
+                    if backend._should_skip_window(float(result.no_speech_probs[i]),
+                                                   float(result.avg_logprobs[i])):
+                        continue  # whisper's no-speech gate
+                    offset = (start + i) * 30.0
+                    win_dur = min(30.0, kept_duration - offset)
+                    segs = backend._parse_window(result.tokens[i], float(result.avg_logprobs[i]),
+                                                 offset, win_dur)
+                    if self.word_timestamps and segs:
+                        align_jobs.append((segs, result.tokens[i], i, offset))
+                    segments.extend(segs)
+                if align_jobs:
+                    backend._attach_words_batch(align_jobs, audio_kv, opts, lo)
+            del pending
 
         # --- diarization over the flat kept timeline ---------------------------
         diar_turns = []
@@ -512,7 +505,6 @@ class ServingPipeline:
             diar_turns = self._diarize_windows(
                 dev_windows, pad_win, kept_duration, sr,
                 cfg.diarization.min_speakers, cfg.diarization.max_speakers)
-        lap("diarization")
 
         return {
             "text": " ".join(s["text"] for s in segments),
@@ -765,6 +757,7 @@ class ServingPipeline:
             processed_ms += dur
         return intervals, mappings
 
+    @tracing.spanned("diarization")
     def _diarize_windows(self, dev_windows: torch.Tensor, pad_win: int, kept_duration: float,
                          sr: int, min_speakers: int, max_speakers: int) -> List[Dict[str, Any]]:
         """The trained diarization stack over the kept timeline: the 30 s

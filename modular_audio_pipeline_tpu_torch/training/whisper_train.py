@@ -38,6 +38,7 @@ from ..models.whisper.model import (
     local_heads,
 )
 from ..parallel.mesh import axis_group
+from ..runtime import tracing
 from .optim import Adam, AdamState, adamw
 
 __all__ = ["TrainState", "make_train_step", "cross_entropy_loss", "IGNORE_INDEX",
@@ -109,11 +110,14 @@ def make_train_step(dims: WhisperDims, optimizer: Optional[Adam] = None, mesh=No
             p.requires_grad_(True)
         return TrainState(params=params, opt_state=opt.init(leaves), step=0)
 
+    @tracing.spanned("train.step")
     def train_step(state: TrainState, mel, tokens, targets) -> Tuple[TrainState, torch.Tensor]:
         state.opt_state.zero_grad()
         with no_tf32():
-            loss = _forward_loss(state.params, dims, mel, tokens, targets, data_group)
-            loss.backward()
+            with tracing.span("train.forward"):
+                loss = _forward_loss(state.params, dims, mel, tokens, targets, data_group)
+            with tracing.span("train.backward"):  # the flash kernel's recompute backward
+                loss.backward()
         loss = loss.detach()
         if data_group is not None:
             for p in tree_leaves(state.params):
@@ -121,7 +125,8 @@ def make_train_step(dims: WhisperDims, optimizer: Optional[Adam] = None, mesh=No
                     p.grad = torch.zeros_like(p)
                 torch.distributed.all_reduce(p.grad, group=data_group)
             torch.distributed.all_reduce(loss, group=data_group)
-        state.opt_state.step()
+        with tracing.span("train.optimizer"):
+            state.opt_state.step()
         return TrainState(state.params, state.opt_state, state.step + 1), loss
 
     return init_state, train_step

@@ -78,6 +78,7 @@ from .ops.mel import log_mel
 from .ops.quant import quantize_decoder
 from .parallel.mesh import axis_group, axis_rank, axis_size, build_mesh, check_mesh, shard_batch
 from .parallel.sharding import ShardedParams, model_group, shard_params
+from .runtime import tracing
 from .runtime.integrity import put_verified_tree
 from .utils import find_weights_bundle, resolve_device, retry_with_backoff, weights_search_roots
 
@@ -679,6 +680,7 @@ class TorchWhisperBackend:
                              len(remaining), temp)
         return out
 
+    @tracing.spanned("whisper.words")
     def _attach_words_batch(self, jobs: List[tuple], audio_kv, opts: DecodeOptions,
                             lo: int = 0) -> None:
         """DTW word alignment for a batch of windows in one (or a few)

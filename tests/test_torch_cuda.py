@@ -704,3 +704,69 @@ def test_decode_top_k_on_the_card_equals_a_stable_sort(cuda, dtype):
         want_vals, want_idx = torch.sort(x, dim=-1, descending=True, stable=True)
         assert torch.equal(idx, want_idx[:, :k])
         assert torch.equal(vals, want_vals[:, :k])
+
+
+def _profiled_kernels(prof):
+    """(name, start ns, end ns) of every device event of a CUDA-only trace."""
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if "CUDA" not in str(e.device_type()):
+            continue
+        a = e.start_ns() if hasattr(e, "start_ns") else int(e.start_us() * 1000)
+        d = e.duration_ns() if hasattr(e, "duration_ns") else int(e.duration_us() * 1000)
+        out.append((e.name(), a, a + d))
+    return out
+
+
+def test_span_stamps_lie_on_the_profilers_clock(cuda):
+    """A flash launch inside a span that waits for the card before it
+    closes runs, by the profiler's clock, inside the span's
+    ``time.time_ns()`` interval, within 100 us of skew; the span opens no
+    profiler range, so the trace holds the kernel alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from modular_audio_pipeline_tpu_torch.runtime import tracing
+
+    q, k, v = (torch.randn((16, 20, 1500, 64), generator=cuda, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    attn_ops.flash_attention(q, k, v)  # built and warm
+    torch.cuda.synchronize()
+    skew_ns = 100_000
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with tracing.record() as rec:
+            for _ in range(5):
+                with tracing.span("flash"):
+                    attn_ops.flash_attention(q, k, v)
+                    torch.cuda.synchronize()
+    kernels = _profiled_kernels(prof)
+    assert "flash" not in {n for n, _, _ in kernels}  # no range under the span's name
+    flash = [kk for kk in kernels if "flash" in kk[0]]
+    assert len(flash) >= 5, kernels
+    spans = [s for s in rec.spans if s.name == "flash"]
+    assert len(spans) == 5
+    for _, a, b in flash:
+        assert any(s.start_ns - skew_ns <= a and b <= s.end_ns + skew_ns for s in spans), (
+            a, b, [(s.start_ns, s.end_ns) for s in spans])
+
+
+def test_span_device_seconds_cover_the_work(cuda):
+    """Device seconds come from the span's event pair: positive for a span
+    that launches work, no more than the host interval of a span that
+    waits for it, and the events go back to the pool on close."""
+    from modular_audio_pipeline_tpu_torch.runtime import tracing
+
+    a = torch.randn((4096, 4096), generator=cuda, device="cuda")
+    with tracing.record() as rec:
+        with tracing.span("work"):
+            for _ in range(8):
+                a = torch.tanh(a @ a)
+            torch.cuda.synchronize()
+        with tracing.span("idle"):
+            pass
+        assert all(s.device_s is None for s in rec.spans)  # resolved only at close
+    work, idle = rec.spans
+    assert work.device_s > 0 and idle.device_s >= 0
+    assert work.device_s <= (work.end_ns - work.start_ns) * 1e-9 + 1e-4
+    assert len(tracing._local.events) >= 4
+    summary = rec.summary()
+    assert summary["work"]["device_s"] == work.device_s

@@ -18,6 +18,8 @@ from test_serving import make_audio
 from test_torch_model import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_serving import assert_equal_results, pair, run_file_and_process
 
+from modular_audio_pipeline_tpu_torch.runtime import tracing
+
 SR = 16000
 
 
@@ -48,12 +50,13 @@ def test_separated_process_and_run_file_equal_jax(backend, tmp_path, monkeypatch
     wav = tmp_path / "podcast.wav"
     write_wav(str(wav), audio.astype(np.float32) / 32768.0, SR)  # read back as int16
     out_j, doc_j, want = run_file_and_process(jp, wav, tmp_path / "jax")
-    out_p, doc_p, got = run_file_and_process(pp, wav, tmp_path / "pt")
+    with tracing.record() as rec:
+        out_p, doc_p, got = run_file_and_process(pp, wav, tmp_path / "pt")
     assert want["vocal_separation"] is True
     assert want["kept_duration"] > 0 and want["segments"] and want["diarization"]
     assert_equal_results(got, want)
     assert doc_p == doc_j and out_p.segments == out_j.segments
-    assert "separation" in pp.last_timings
+    assert "serving.separation" in rec.summary()
     if backend == "masknet":  # on the device: the host backend is never resolved
         assert type(pp._separation_net).__name__ == "MaskUNet" and pp._separation_fn is None
     else:
