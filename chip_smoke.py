@@ -148,18 +148,20 @@ Phases (any failure exits non-zero and prints no result line):
    versions (``TRAIN_LOSS_RTOL``, ``TRAIN_GRAD_REL``), every encoder
    block's attention q/k weight gradient non-zero; one warm-up and 4 timed
    steps on the batch (launch counts reset just before and read just
-   after: 32 flash launches a step), falling losses, ms per step, samples
+   after: 32 flash launches and 32 of its backward a step, as at step 0),
+   falling losses, ms per step, samples
    per second, peak memory; the checkpoint saved as ``params.npz``,
    reloaded, and one forward with equal bits. (c) The flash kernel at the
    training shape [8, 20, 1500, 64] f32 against its plain version, timed
    beside ``scaled_dot_product_attention`` in f32 and its f32 bound, the
-   backward recompute's time; its autograd.Function's q/k/v gradients
-   against autograd through the plain version there and at [2, 4, 1001,
-   32] (``FLASH_GRAD_TOL``). (b) The ConvVAD, ConvEmbedder,
+   backward kernel's time and the recompute's; its autograd.Function's
+   q/k/v gradients against autograd through the plain version there and
+   at [2, 4, 1001, 32] (``FLASH_GRAD_TOL``). (b) The ConvVAD, ConvEmbedder,
    SegmentationNet and MaskUNet trainers, 5 steps each on the card from
    their shipped bundles: finite losses, the step-0 loss within
    ``SMALL_LOSS_RTOL`` of one step on the CPU, the saved checkpoint
-   reloaded into the module bit for bit, ms per step.
+   reloaded into the module bit for bit, ms per step; SegmentationNet's
+   5 steps make one flash launch and one of its backward a layer a step.
 11. The integrity layer and the mesh. (a) ``checksum_device`` on the card
    equals ``host_checksum`` for int8, int16, int32, int64, float16, bfloat16
    and float32 at odd sizes; a zeroed device copy is refused
@@ -762,6 +764,7 @@ def _reset_launches():
                 "int8_matmul": int8_matmul}
     for w in wrappers.values():
         w.launches = 0
+    flash_attention.backward_launches = 0
     return wrappers
 
 
@@ -2352,9 +2355,10 @@ TRAIN_GRAD_REL = 1e-3  # step-0 gradient of each leaf, kernels vs plain versions
 #   every gradient behind the first attention
 SMALL_LOSS_RTOL = 1e-4  # a small trainer's step-0 loss, card vs CPU: f32 (TF32 off) FFTs,
 #   convolutions and, for the segmentation network, the flash route in another order
-FLASH_GRAD_TOL = FLASH_TOL_F32  # q/k/v gradients through the kernel's autograd.Function vs
-#   autograd through the plain version, over the largest |gradient|: the backward is the same
-#   recompute; only the forward saved for nothing differs
+FLASH_GRAD_TOL = FLASH_TOL_F32  # q/k/v gradients through the kernel's autograd.Function (the
+#   f32 backward kernel) vs autograd through the plain version, over the largest |gradient|:
+#   the sums run in another order (tiles; dq's additions in L2), with exp2 against the saved
+#   log-sum-exp
 TRAIN_SHAPE = (8, 20, 1500, 64)  # the turbo encoder's attention at train.py's batch 8
 TRAIN_STEPS = 4  # timed steps after one warm-up step
 
@@ -2362,8 +2366,8 @@ TRAIN_STEPS = 4  # timed steps after one warm-up step
 @contextlib.contextmanager
 def plain_recompute():
     """Bind the Whisper model's flash calls to the plain version under
-    activation checkpointing: the plain forward, and in the backward the
-    recompute the kernel's autograd.Function makes. Without it the plain
+    activation checkpointing: the plain forward, and in the backward a
+    recompute through the plain version. Without it the plain
     version would keep the [8, 20, 1500, 1500] f32 probabilities of all 32
     layers for the backward, 46 GB."""
     from torch.utils.checkpoint import checkpoint
@@ -2425,6 +2429,7 @@ def train_whisper(torch, tmp: Path) -> tuple:
     loss_k, grads_k = loss_and_grads()
     torch.cuda.synchronize()
     grad_launches = wrappers["flash_attention"].launches
+    grad_backward = wrappers["flash_attention"].backward_launches
     with plain_recompute():
         loss_p, grads_p = loss_and_grads()
     loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
@@ -2449,9 +2454,11 @@ def train_whisper(torch, tmp: Path) -> tuple:
     log(f"train step 0: loss {loss_k.item():.6f} (plain {loss_p.item():.6f}, rel {loss_rel:.2e}, "
         f"tol {TRAIN_LOSS_RTOL}); worst leaf gradient {worst:.2e} from plain ({worst_name}, "
         f"bound {TRAIN_GRAD_REL}); every encoder block's attn q_w/k_w gradient non-zero; "
-        f"{grad_launches} flash launches")
-    if not (loss_rel <= TRAIN_LOSS_RTOL and grad_launches == dims.n_audio_layer):
-        raise AssertionError(f"train step 0: loss rel {loss_rel}, launches {grad_launches}")
+        f"{grad_launches} flash launches, {grad_backward} of its backward")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and grad_launches == dims.n_audio_layer
+            and grad_backward == dims.n_audio_layer):
+        raise AssertionError(f"train step 0: loss rel {loss_rel}, launches {grad_launches}, "
+                             f"backward launches {grad_backward}")
     SHARED["train_loss0"] = loss_k.item()
     del grads_k, grads_p, grads, plain
     torch.cuda.empty_cache()
@@ -2471,6 +2478,7 @@ def train_whisper(torch, tmp: Path) -> tuple:
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / TRAIN_STEPS
     launches = {name: w.launches for name, w in wrappers.items()}
+    launches["flash_attention.backward"] = wrappers["flash_attention"].backward_launches
     losses = [x.item() for x in losses]
     peak = torch.cuda.max_memory_allocated()
     n = batch[0].shape[0]
@@ -2479,9 +2487,10 @@ def train_whisper(torch, tmp: Path) -> tuple:
         f"{peak / 2**30:.2f} GiB; launches over {TRAIN_STEPS} steps {launches}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train: losses {losses}")
-    if launches["flash_attention"] != dims.n_audio_layer * TRAIN_STEPS:
-        raise AssertionError(f"train: {launches['flash_attention']} flash launches in "
-                             f"{TRAIN_STEPS} steps, not {dims.n_audio_layer} per step")
+    for name in ("flash_attention", "flash_attention.backward"):
+        if launches[name] != dims.n_audio_layer * TRAIN_STEPS:
+            raise AssertionError(f"train: {launches[name]} {name} launches in {TRAIN_STEPS} "
+                                 f"steps, not {dims.n_audio_layer} per step")
 
     # the checkpoint: params.npz in the JAX layout, reloaded, one forward
     t0 = time.perf_counter()
@@ -2507,10 +2516,12 @@ def flash_training_shape(torch) -> dict:
     """Phase 10c, and the kernel at the training shape: the f32 CUDA-core route
     at [8, 20, 1500, 64] against its plain version, timed beside
     ``scaled_dot_product_attention`` in f32 and its f32 bound; the backward
-    recompute's time; the autograd.Function's q/k/v gradients against
-    autograd through the plain version there and at a ragged [2, 4, 1001, 32]."""
+    kernel's time beside the recompute through the plain version that it
+    replaced; the autograd.Function's q/k/v gradients against autograd
+    through the plain version there and at a ragged [2, 4, 1001, 32]."""
     import torch.nn.functional as F
 
+    from modular_audio_pipeline_tpu_torch.ops import attention as attn
     from modular_audio_pipeline_tpu_torch.ops.attention import attention_reference, flash_attention
 
     g = torch.Generator(device="cuda").manual_seed(10)
@@ -2546,6 +2557,11 @@ def flash_training_shape(torch) -> dict:
     qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
     backward_ms = time_ms(lambda: torch.autograd.grad(attention_reference(qs, ks, vs),
                                                       (qs, ks, vs), go), 2, warmup=1)
+    del qs, ks, vs
+    torch.cuda.empty_cache()
+    o, lse = attn._flash_lse_launch(q, k, v)
+    kernel_backward_ms = graph_ms([lambda: attn._flash_backward(q, k, v, o, lse, go)] * 2, reps=3)
+    del o, lse
     b, h, s, d = TRAIN_SHAPE
     n_bytes = 4 * q.numel() * q.element_size()
     bound_ms, bound_by = bound(n_bytes, 4.0 * b * h * s * s * d, PEAK_F32_FLOPS)
@@ -2554,14 +2570,15 @@ def flash_training_shape(torch) -> dict:
         bound_ms, bound_by = exp_ms, "operations"
     log(f"flash f32 {TRAIN_SHAPE} (training): kernel {ms:.3f} ms on the device, plain "
         f"{plain_ms:.3f} ms, sdpa f32 {lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); "
-        f"the backward recompute {backward_ms:.3f} ms")
+        f"the backward kernel {kernel_backward_ms:.3f} ms, the recompute {backward_ms:.3f} ms")
     if not err <= FLASH_TOL_F32:
         raise AssertionError(f"flash_attention at {TRAIN_SHAPE} f32: err {err}")
-    del q, k, v, go, qs, ks, vs
+    del q, k, v, go
     torch.cuda.empty_cache()
     return {"shape": list(TRAIN_SHAPE), "dtype": "float32", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms, "backward_recompute_ms": backward_ms,
+            "library_ms": lib_ms, "backward_ms": kernel_backward_ms,
+            "backward_recompute_ms": backward_ms,
             "grad_max_rel_err": grad_errs}
 
 
@@ -2600,6 +2617,7 @@ def small_trainers(torch, tmp: Path) -> tuple:
            device="cuda", on_step=on_step, **kw)
         total_s = time.perf_counter() - t0
         launches[name] = wrappers["flash_attention"].launches
+        launches[f"{name}.backward"] = wrappers["flash_attention"].backward_launches
         cpu_losses = []
         fn(str(tmp / "small_cpu" / name), steps=1, params=str(SHIPPED_WEIGHTS / bundle),
            device="cpu", on_step=lambda i, loss: cpu_losses.append(loss.item()), **kw)
@@ -2611,15 +2629,18 @@ def small_trainers(torch, tmp: Path) -> tuple:
         log(f"train {name}: losses {[round(x, 5) for x in losses]}; step 0 {losses[0]:.6f} on the "
             f"card, {cpu_losses[0]:.6f} on the CPU (rel {rel:.2e}, tol {SMALL_LOSS_RTOL}); "
             f"{step_ms:.1f} ms per step after the first (host data synthesis included), "
-            f"{total_s:.1f} s in all; flash launches {launches[name]}; reloaded bit-equal {same}")
+            f"{total_s:.1f} s in all; flash launches {launches[name]}, "
+            f"{launches[f'{name}.backward']} of its backward; reloaded bit-equal {same}")
         if not (all(np.isfinite(losses)) and len(losses) == 5 and rel <= SMALL_LOSS_RTOL
                 and same):
             raise AssertionError(f"train {name}: losses {losses}, CPU {cpu_losses}, "
                                  f"reloaded equal {same}")
         out[name] = {"losses": losses, "cpu_step0_loss": cpu_losses[0], "step0_rel": rel,
                      "step_ms": step_ms, "total_s": total_s}
-    if launches["segmentation"] != 5 * SegmentationNet.LAYERS:
-        raise AssertionError(f"train segmentation: {launches['segmentation']} flash launches")
+    seg = (launches["segmentation"], launches["segmentation.backward"])
+    if seg != (5 * SegmentationNet.LAYERS,) * 2:
+        raise AssertionError(f"train segmentation: {seg[0]} flash launches, {seg[1]} of its "
+                             f"backward")
     return launches, out
 
 
@@ -2638,15 +2659,17 @@ def phase_training(torch, tmp: Path):
     t0 = time.perf_counter()
     flash = flash_training_shape(torch)
     flash["launches_per_step"] = launches["flash_attention"] // TRAIN_STEPS
-    whisper["backward_recompute_share"] = (flash["backward_recompute_ms"]
-                                           * whisper["encoder_layers"] / whisper["step_ms"])
-    log(f"phase 10c done in {time.perf_counter() - t0:.1f} s; the backward recompute is "
-        f"{whisper['backward_recompute_share']:.3f} of a step")
+    flash["backward_launches_per_step"] = launches["flash_attention.backward"] // TRAIN_STEPS
+    whisper["backward_share"] = (flash["backward_ms"] * whisper["encoder_layers"]
+                                 / whisper["step_ms"])
+    log(f"phase 10c done in {time.perf_counter() - t0:.1f} s; the backward kernel is "
+        f"{whisper['backward_share']:.3f} of a step")
     t0 = time.perf_counter()
     small_launches, small = small_trainers(torch, tmp)
     log(f"phase 10b done in {time.perf_counter() - t0:.1f} s")
     return launches, {"whisper_turbo": whisper, "small": small, "flash_train": flash,
-                      "segmentation_flash_launches": small_launches["segmentation"]}
+                      "segmentation_flash_launches": small_launches["segmentation"],
+                      "segmentation_backward_launches": small_launches["segmentation.backward"]}
 
 
 # -- phase 11 ----------------------------------------------------------------
@@ -3508,10 +3531,12 @@ def main() -> int:
             if launches_seek[name] <= 0:
                 raise AssertionError(f"{name} was not launched on the seek path")
             k["launches_seek_path"] = launches_seek[name]
-        if name == "flash_attention":  # the one kernel of the training path
-            if launches_train[name] <= 0:
-                raise AssertionError(f"{name} was not launched on the training path")
+        if name == "flash_attention":  # the training path's kernels: flash and its backward
+            if launches_train[name] <= 0 or launches_train[f"{name}.backward"] <= 0:
+                raise AssertionError(f"{name} or its backward was not launched on the "
+                                     f"training path")
             k["launches_training_path"] = launches_train[name]
+            k["backward_launches_training_path"] = launches_train[f"{name}.backward"]
             k["f32_training_encoder"] = training["flash_train"]
         # the model axis's per-rank shapes (phase 11; mesh_world fails unless
         # both kernels launched on every rank)

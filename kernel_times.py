@@ -8,7 +8,13 @@ file's directory), builds its kernels and prints one JSON line with the
 flash kernel's time at the large-v3-turbo encoder shape (bf16, the
 tensor-core route), at SegmentationNet's (f32 [512, 4, 1000, 32], a
 512-window chunk) and at the turbo encoder's training shape (f32 [8, 20,
-1500, 64], batch 8), the last two on the f32 route, the ancestry
+1500, 64], batch 8), the last two on the f32 route (the training one
+also through the log-sum-exp forward that a training step launches),
+the f32 backward at both f32 shapes (the backward kernel with its
+pre-pass, beside the recompute through the plain version that it
+replaced, its bound from 10 B H S^2 D operations at 67 TFLOP/s, B H S^2
+exponentials and 8 tensors of bytes, and ptxas's registers and spill
+bytes of each instantiation), the ancestry
 kernel's at the decode shape (16 windows x 5 beams x 20 heads, int8
 cache), at a 448 and a 64 context bucket, with random and with shared
 ancestry, and the int8 product's at the five main-path shapes and at 16
@@ -200,6 +206,74 @@ def device_launches(torch, fn) -> int:
                if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
+def event_ms(torch, fn, n: int = 2, warmup: int = 1) -> float:
+    """Mean device time of ``fn`` over ``n`` calls between two CUDA events
+    (for work that allocates as it goes, such as an autograd pass)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def flash_backward(torch, out: dict) -> None:
+    """The f32 gradient at the training encoder's and SegmentationNet's
+    shapes: the backward kernel (on a gradient laid out as the encoder hands
+    it back, a view of [B, S, H, D] storage) beside the recompute through
+    the plain version, its largest difference from the recompute's
+    gradients over their largest, and the bound."""
+    import re
+
+    from modular_audio_pipeline_tpu_torch.ops import _build
+    from modular_audio_pipeline_tpu_torch.ops import attention as attn
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for name, shape in (("training", (8, 20, 1500, 64)), ("segmentation", (512, 4, 1000, 32))):
+        b, h, s, d = shape
+        t = {"operations": 10.0 * b * h * s * s * d / 67e12,
+             "exponentials": float(b * h * s * s) / (132 * 16 * 1.98e9),
+             "bytes": 8.0 * b * h * s * d * 4 / 3.35e12}
+        bound_by = max(t, key=t.get)
+        out[f"flash_backward_{name}_bound_ms"] = t[bound_by] * 1e3
+        out[f"flash_backward_{name}_bound_by"] = bound_by
+        q, k, v, go = (torch.randn(shape, generator=g, device="cuda") for _ in range(4))
+        qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
+        out[f"flash_backward_recompute_{name}_ms"] = event_ms(torch, lambda: torch.autograd.grad(
+            attn.attention_reference(qs, ks, vs), (qs, ks, vs), go))
+        want = torch.autograd.grad(attn.attention_reference(qs, ks, vs), (qs, ks, vs), go)
+        del qs, ks, vs
+        torch.cuda.empty_cache()
+        o, lse = attn._flash_lse_launch(q, k, v)
+        go_m = go.transpose(1, 2).contiguous().transpose(1, 2)
+        got = attn._flash_backward(q, k, v, o, lse, go_m)
+        err = max(((a - w).abs().max() / w.abs().max()).item() for a, w in zip(got, want))
+        out[f"flash_backward_{name}_max_rel_err"] = err
+        del got, want
+        out[f"flash_backward_{name}_ms"] = graph_ms(
+            torch, lambda: attn._flash_backward(q, k, v, o, lse, go_m), calls=2, reps=3)
+        log(f"flash backward f32 {shape}: {out[f'flash_backward_{name}_ms']:.3f} ms, the "
+            f"recompute {out[f'flash_backward_recompute_{name}_ms']:.3f} ms, bound "
+            f"{t[bound_by] * 1e3:.3f} ms ({bound_by}); dq/dk/dv within {err:.2e} of the "
+            f"recompute's over its largest")
+        del o, lse, go_m, q, k, v, go
+        torch.cuda.empty_cache()
+    text = _build.build_log("flash_attention")
+    for hd in (64, 32):
+        tag = f"flash_bwd_fmaILi{hd}E"
+        if tag not in text:
+            continue
+        tail = text[text.index(tag):]
+        regs = re.search(r"Used (\d+) registers", tail)
+        spills = re.search(r"(\d+) bytes spill stores", tail)
+        out[f"flash_backward_hd{hd}_registers"] = int(regs.group(1)) if regs else None
+        out[f"flash_backward_hd{hd}_spill_bytes"] = int(spills.group(1)) if spills else None
+
+
 def fma_shapes(torch, out: dict) -> None:
     """The CUDA-core route at each shape of FMA_SHAPES: built in parallel,
     held to the plain version (1e-4, f32) at ragged lengths, timed."""
@@ -286,7 +360,12 @@ def main() -> int:
     q, k, v = (torch.randn((8, 20, 1500, 64), generator=g, device="cuda") for _ in range(3))
     out["flash_training_f32_ms"] = graph_ms(torch, lambda: flash_attention(q, k, v),
                                             calls=2, reps=3)
+    from modular_audio_pipeline_tpu_torch.ops import attention as attn
+
+    out["flash_training_f32_lse_ms"] = graph_ms(torch, lambda: attn._flash_lse_launch(q, k, v),
+                                                calls=2, reps=3)
     del q, k, v
+    flash_backward(torch, out)
     if FMA:
         fma_shapes(torch, out)
 

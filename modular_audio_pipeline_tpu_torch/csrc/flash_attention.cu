@@ -1,8 +1,12 @@
-// Flash attention forward for the Whisper encoder, for Hopper (sm_90a).
+// Flash attention for the Whisper encoder, for Hopper (sm_90a): the forward,
+// and the f32 backward of training.
 //
-// Replaces the Pallas TPU kernel `_flash_kernel`
+// The forward replaces the Pallas TPU kernel `_flash_kernel`
 // (modular_audio_pipeline_tpu/ops/attention.py:60, launched by `_flash_call`
-// at :103 through `flash_attention` at :132).
+// at :103 through `flash_attention` at :132). The backward replaces no TPU
+// kernel: the JAX package differentiates its `custom_vjp` through XLA einsums
+// (:148-163), and the port did the same through its plain version until the
+// backward kernel below (`flash_bwd_fma`, at the end of this file).
 //
 // Computes o = softmax((q*s) (k*s)^T) v over [B*H, S, D] rows, s = D^-0.25
 // (Whisper's split scaling). q*s and k*s are rounded to the input type, as
@@ -101,6 +105,40 @@
 // what separates the two. The CUDA-core route, by kernel_times.py beside a
 // checkout with one thread per query: [512, 4, 1000, 32] f32 7.22-7.27 ms
 // (10.37-10.44 ms), [8, 20, 1500, 64] f32 2.65-2.66 ms (4.31 ms).
+//
+// The training forward (`flash_fwd_fma` with LSE) is the same kernel with
+// another epilogue: each query row's log-sum-exp in base 2 for the backward,
+// and o in the [B, S, H, HD] layout the heads are merged in, so merging them
+// copies nothing and the o the backward keeps is the tensor the output
+// projection keeps anyway. Of the epilogues tried it cost least: 1.5% over
+// the plain one at [8, 20, 1500, 64] (2.680 against 2.640 ms); the log-sum-
+// exp alone and the layout alone each cost 1.4%.
+//
+// The backward (f32, HD 32 or 64: every trainer of the port). Its bound at
+// [8, 20, 1500, 64]: five S x S x HD products (S = Q K^T again, dV = P^T dO,
+// dP = dO V^T, dQ = dS K, dK = dS^T Q), 2.30e11 operations, 3.44 ms at 67
+// TFLOP/s on the CUDA cores (TF32 would change the f32 arithmetic); 3.6e8
+// exponentials, 0.086 ms; q, k, v, o, dO read and dq, dk, dv written, 0.147
+// ms. So it is bound by operations, as the forward is, and the same means
+// apply: register tiles that feed each shared-memory load to many FMAs.
+// Design (`flash_bwd_fma`, BwdTile): one block per (tile of BK = 128 keys,
+// batch*head), 256 threads, one block an SM (205 KB of shared memory at HD
+// 64). K and V (scaled and rounded as the forward's) stay in shared memory,
+// dK and dV in registers (8 keys x 4 columns each a thread at HD 64) for the
+// whole loop over tiles of 64 queries, whose Q, dO, log-sum-exp and delta
+// come by `cp.async` into the other of two buffers while this tile is
+// computed. A tile: S and dP in register tiles of 8 queries x 4 keys; P =
+// exp2(S log2(e) - lse) and dS = P (dP - delta) (zero past S) into shared
+// memory; dV and dK accumulate a query at a time; dQ = dS K over the key
+// tile in 4 x 4 register tiles, added into an f32 dq by `red.global.add.v4`
+// (the order of the additions changes from run to run). Each product's warp
+// covers 4 rows x 8 columns of its thread grid, so its shared-memory loads
+// fall on distinct banks or are broadcast. A pre-pass (`flash_bwd_prep`)
+// computes delta = rowsum(dO o) and zeroes dq. Two syncs a query tile.
+// Measured by kernel_times.py on an NVIDIA H100 80GB HBM3 at 700 W: [8, 20,
+// 1500, 64] 6.42 ms with the pre-pass (the recompute through the plain
+// version: 11.47 ms), 54% of the bound; [512, 4, 1000, 32] 23.9 ms (49.0
+// ms); 0 spill bytes.
 
 #include "common.cuh"
 
@@ -228,6 +266,12 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float fast_log2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 
@@ -556,18 +600,18 @@ struct FmaTile {
                 "whole copies per thread");
 };
 
-// `rows` rows of a [S, HD] head from row r0 into shared memory at `dst`
-// (rows `row_bytes` apart), 16 bytes a copy; rows past S are zero-filled
-// and read nothing.
+// `rows` rows of a [S, HD] head (rows `stride` elements apart) from row r0
+// into shared memory at `dst` (rows `row_bytes` apart), 16 bytes a copy;
+// rows past S are zero-filled and read nothing.
 template <class C, typename T, int HD>
 __device__ __forceinline__ void fma_copy(uint32_t dst, int row_bytes, const T* __restrict__ src,
-                                         int r0, int rows, int S) {
+                                         int r0, int rows, int S, size_t stride = HD) {
   constexpr int kPerRow = HD / C::kVec;
 #pragma unroll
   for (int e = threadIdx.x; e < rows * kPerRow; e += C::kThreads) {
     const int r = e / kPerRow, c = e - r * kPerRow;
     const bool in = r0 + r < S;
-    const T* g = src + static_cast<size_t>(in ? r0 + r : 0) * HD + c * C::kVec;
+    const T* g = src + static_cast<size_t>(in ? r0 + r : 0) * stride + c * C::kVec;
     cp_async16(dst + r * row_bytes + c * 16, g, in ? 16u : 0u);
   }
 }
@@ -650,10 +694,15 @@ __device__ __forceinline__ float part(const float4& x, int u) {
 
 // q, k, v, o: [B*H, S, HD] of T, 16-byte aligned. grid (ceil(S / BQ), B*H).
 // MIN_BLOCKS: the blocks an SM must hold, which caps the registers a thread.
-template <typename T, int HD, int BQ, int TQ, int TK, int MIN_BLOCKS>
+// LSE (the training forward): o is written as [B, S, H, HD], the layout the
+// heads are merged in, so the output the backward keeps is the tensor the
+// next projection keeps; and each query row's log-sum-exp in the exp2
+// arithmetic, m log2(e) + log2(l) (`lg2.approx`), goes to lse [B*H, S4] (S4:
+// S rounded up to 4, so each head's row starts on 16 bytes).
+template <typename T, int HD, int BQ, int TQ, int TK, int MIN_BLOCKS, bool LSE = false>
 __global__ void __launch_bounds__(FmaTile<T, HD, BQ, TQ, TK>::kThreads, MIN_BLOCKS)
 flash_fwd_fma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              T* __restrict__ o, int S, float scale) {
+              T* __restrict__ o, int S, float scale, float* __restrict__ lse, int heads) {
   using C = FmaTile<T, HD, BQ, TQ, TK>;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem + C::kQ;
@@ -800,6 +849,26 @@ flash_fwd_fma(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     }
   }
 
+  if constexpr (LSE) {
+    // rows of [B, S, H, HD] are heads * HD apart; the log-sum-exp is taken
+    // in every lane (no divergence) and stored by the row's first
+    const int b = blockIdx.y / heads, h = blockIdx.y - b * heads;
+    T* out = o + ((static_cast<size_t>(b) * S + q0 + group) * heads + h) * HD + lane * C::kCols;
+    const size_t stride = static_cast<size_t>(heads) * HD * C::kGroups;
+    float* lrow = lse + static_cast<size_t>(blockIdx.y) * ((S + 3) & ~3) + q0 + group;
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) {
+#pragma unroll
+      for (int off = C::kLanes / 2; off > 0; off >>= 1)
+        l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+      const float lg = fmaf(m[i], kLog2e, fast_log2(l[i]));
+      if (q0 + group + i * C::kGroups < S) {
+        store_cols(out + i * stride, acc[i], 1.f / l[i]);
+        if (lane == 0) lrow[i * C::kGroups] = lg;
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < TQ; ++i) {
 #pragma unroll
@@ -811,14 +880,17 @@ flash_fwd_fma(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   }
 }
 
-template <typename T, int HD, int BQ, int TQ, int TK, int MIN_BLOCKS>
+template <typename T, int HD, int BQ, int TQ, int TK, int MIN_BLOCKS, bool LSE = false>
 int launch_fma(const void* q, const void* k, const void* v, void* o, int bh, int s, float scale,
-               cudaStream_t stream) {
+               cudaStream_t stream, float* lse = nullptr, int heads = 1) {
   using C = FmaTile<T, HD, BQ, TQ, TK>;
   const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+                          reinterpret_cast<uintptr_t>(lse);
   if (align & 15) return static_cast<int>(cudaErrorMisalignedAddress);
-  const auto kernel = flash_fwd_fma<T, HD, BQ, TQ, TK, MIN_BLOCKS>;
+  if (LSE && (lse == nullptr || heads <= 0 || bh % heads != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = flash_fwd_fma<T, HD, BQ, TQ, TK, MIN_BLOCKS, LSE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -826,7 +898,319 @@ int launch_fma(const void* q, const void* k, const void* v, void* o, int bh, int
   kernel<<<grid, C::kThreads, C::kSmem, stream>>>(static_cast<const T*>(q),
                                                   static_cast<const T*>(k),
                                                   static_cast<const T*>(v), static_cast<T*>(o), s,
-                                                  scale);
+                                                  scale, lse, heads);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// ---------------------------------------------------------------------------
+// CUDA-core backward: f32, head dim 32 or 64
+// ---------------------------------------------------------------------------
+
+// Strides of a [B, H, S, HD] tensor in elements (the last one is 1).
+struct Strides {
+  long long b, h, s;
+};
+
+// The block's shape: a tile of BK keys against tiles of BQ queries, 256
+// threads. Scores and dP [BQ x BK]: TQ x TK a thread, queries g + i * kG1,
+// keys l + j * kL1. dK and dV [BK x HD]: TKV contiguous keys x TCV
+// contiguous columns a thread, kept in registers over the whole loop. dQ
+// [BQ x HD]: queries qd + i * kQD x TCD contiguous columns a thread. Shared
+// memory, in floats: K and V [BK][kRow] (the whole loop), Q and dO [2][BQ][kRow]
+// (two tiles), the log-sum-exp and delta [2][BQ], P and dS [BQ][kProw].
+template <int HD, int BQ, int BK, int TQ, int TK, int TKV, int TCV, int TQD, int TCD>
+struct BwdTile {
+  static constexpr int kHD = HD;
+  static constexpr int kThreads = 256;  // flash_bwd_fma's launch bounds
+  static constexpr int kVec = 4;  // floats of one 16-byte copy
+  static constexpr bool kWiden = false;
+  static constexpr int kRow = HD + 4;  // odd in 16-byte units, as FmaTile's
+  static constexpr int kProw = BK + 8;  // 8 banks apart: four rows of eight keys on 32 banks
+  static constexpr int kG1 = BQ / TQ, kL1 = BK / TK;
+  static constexpr int kKV = BK / TKV, kCV = HD / TCV;
+  static constexpr int kQD = BQ / TQD, kCD = HD / TCD;
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + BK * kRow;
+  static constexpr int kQ = kV + BK * kRow;
+  static constexpr int kDO = kQ + 2 * BQ * kRow;
+  static constexpr int kLse = kDO + 2 * BQ * kRow;
+  static constexpr int kDelta = kLse + 2 * BQ;
+  static constexpr int kP = kDelta + 2 * BQ;
+  static constexpr int kDS = kP + BQ * kProw;
+  static constexpr int kSmem = (kDS + BQ * kProw) * 4;
+  static_assert(kG1 * kL1 == kThreads && kKV * kCV == kThreads && kQD * kCD == kThreads,
+                "every thread owns one tile of each product");
+  static_assert(TCV % 4 == 0 && TCD == 4 && TKV % 4 == 0 && BK % 4 == 0,
+                "float4 loads of P and dS rows, float4 adds of dQ");
+  static_assert(BQ / 4 * 2 <= kThreads, "the log-sum-exp and delta copies take a thread each");
+};
+
+// This thread's place on a grid of threads `COLS` wide, a warp covering
+// 32 / W rows x W columns: its loads of one row of shared memory fall on W
+// neighbouring 16-byte units and of one column on 32 / W neighbouring rows.
+template <int COLS, int W>
+__device__ __forceinline__ void place(int& row, int& col) {
+  static_assert(COLS % W == 0 && 32 % W == 0 && (256 / COLS) % (32 / W) == 0,
+                "warps tile the grid");
+  constexpr int kAcross = COLS / W;
+  const int w = threadIdx.x >> 5, x = threadIdx.x & 31;
+  col = (w % kAcross) * W + x % W;
+  row = (w / kAcross) * (32 / W) + x / W;
+}
+
+// acc[i][j] = a row (g + i kG1) . b row (l + j kL1) over HD, in d order
+template <class C, int TQ, int TK>
+__device__ __forceinline__ void score_tile(float (&acc)[TQ][TK], const float* a, const float* b,
+                                           int g, int l) {
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+#pragma unroll
+    for (int j = 0; j < TK; ++j) acc[i][j] = 0.f;
+  }
+#pragma unroll
+  for (int d = 0; d < C::kHD; d += 4) {
+    float4 av[TQ];
+#pragma unroll
+    for (int i = 0; i < TQ; ++i)
+      av[i] = *reinterpret_cast<const float4*>(a + (g + i * C::kG1) * C::kRow + d);
+#pragma unroll
+    for (int j = 0; j < TK; ++j) {
+      const float4 bv = *reinterpret_cast<const float4*>(b + (l + j * C::kL1) * C::kRow + d);
+#pragma unroll
+      for (int i = 0; i < TQ; ++i) {
+        acc[i][j] = fmaf(av[i].x, bv.x, acc[i][j]);
+        acc[i][j] = fmaf(av[i].y, bv.y, acc[i][j]);
+        acc[i][j] = fmaf(av[i].z, bv.z, acc[i][j]);
+        acc[i][j] = fmaf(av[i].w, bv.w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// *p += x[0..3] * s, one vector reduction in L2 (sm_90)
+__device__ __forceinline__ void red_add4(float* p, const float (&x)[4], float s) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "f"(x[0] * s),
+               "f"(x[1] * s), "f"(x[2] * s), "f"(x[3] * s)
+               : "memory");
+}
+
+// delta[bh, s] = dout[bh, s, :] . o[bh, s, :] (o and dout at any strides
+// with 16-byte rows), and row (bh, s) of dq set to zero for the backward's
+// additions. kVecs = HD / 4 threads a row.
+template <int HD>
+__global__ void __launch_bounds__(256)
+flash_bwd_prep(const float* __restrict__ o, Strides so, const float* __restrict__ dout,
+               Strides sd, float* __restrict__ delta, float* __restrict__ dq, int bh_total,
+               int heads, int S) {
+  constexpr int kVecs = HD / 4;
+  const long long t = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  const long long row = t / kVecs;
+  const int c = static_cast<int>(t % kVecs);
+  const bool in = row < static_cast<long long>(bh_total) * S;
+  float d = 0.f;
+  int bh = 0, s = 0;
+  if (in) {
+    bh = static_cast<int>(row / S);
+    s = static_cast<int>(row - static_cast<long long>(bh) * S);
+    const int b = bh / heads, h = bh - b * heads;
+    const float4 x = *reinterpret_cast<const float4*>(o + b * so.b + h * so.h + s * so.s + 4 * c);
+    const float4 y =
+        *reinterpret_cast<const float4*>(dout + b * sd.b + h * sd.h + s * sd.s + 4 * c);
+    d = fmaf(x.x, y.x, fmaf(x.y, y.y, fmaf(x.z, y.z, x.w * y.w)));
+    reinterpret_cast<float4*>(dq + row * HD)[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int off = kVecs / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+  if (in && c == 0) delta[static_cast<size_t>(bh) * ((S + 3) & ~3) + s] = d;
+}
+
+// The gradient of o = softmax((q s)(k s)^T) v, s = HD^-0.25, given dout, o's
+// log-sum-exp from the forward (lse, delta: [B*H, S4]) and delta = rowsum(dout o):
+// P = exp2(S log2(e) - lse), dV = P^T dout, dP = dout V^T, dS = P (dP - delta),
+// dK = s dS^T (q s), dQ = s dS (k s). q, k, v, dk, dv: [B*H, S, HD]; dout at
+// its strides; dq [B*H, S, HD], zeroed, takes each key tile's part by vector
+// reductions in L2. grid (ceil(S / BK), B*H).
+template <int HD, int BQ, int BK, int TQ, int TK, int TKV, int TCV, int TQD, int TCD>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_fma(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout, Strides sd,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv, int S,
+              int heads, float scale) {
+  using C = BwdTile<HD, BQ, BK, TQ, TK, TKV, TCV, TQD, TCD>;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem + C::kK;
+  float* vs = smem + C::kV;
+  float* ps = smem + C::kP;
+  float* dss = smem + C::kDS;
+  const auto q_buf = [&](int b) { return smem + C::kQ + b * BQ * C::kRow; };
+  const auto do_buf = [&](int b) { return smem + C::kDO + b * BQ * C::kRow; };
+  const auto lse_buf = [&](int b) { return smem + C::kLse + b * BQ; };
+  const auto delta_buf = [&](int b) { return smem + C::kDelta + b * BQ; };
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * BK;
+  const int s4 = (S + 3) & ~3;
+  const size_t base = static_cast<size_t>(bh) * S * HD;
+  const int hb = bh / heads;
+  const float* doh = dout + hb * sd.b + (bh - hb * heads) * sd.h;
+  const float* lseh = lse + static_cast<size_t>(bh) * s4;
+  const float* deltah = delta + static_cast<size_t>(bh) * s4;
+  const int n_tiles = (S + BQ - 1) / BQ;
+
+  // Query tile n of q, dout, the log-sum-exp and delta into buffer n & 1.
+  const auto load_tile = [&](int n) {
+    const int b = n & 1, r0 = n * BQ;
+    fma_copy<C, float, HD>(smem_u32(q_buf(b)), C::kRow * 4, q + base, r0, BQ, S);
+    fma_copy<C, float, HD>(smem_u32(do_buf(b)), C::kRow * 4, doh, r0, BQ, S, sd.s);
+    const int c = threadIdx.x % (BQ / 4);
+    if (threadIdx.x < BQ / 2) {
+      const bool in = r0 + 4 * c < S;
+      const bool is_lse = threadIdx.x < BQ / 4;
+      const float* src = (is_lse ? lseh : deltah) + (in ? r0 + 4 * c : 0);
+      cp_async16(smem_u32((is_lse ? lse_buf(b) : delta_buf(b)) + 4 * c), src, in ? 16u : 0u);
+    }
+    cp_async_commit();
+  };
+  fma_copy<C, float, HD>(smem_u32(ks), C::kRow * 4, k + base, k0, BK, S);
+  fma_copy<C, float, HD>(smem_u32(vs), C::kRow * 4, v + base, k0, BK, S);
+  load_tile(0);
+
+  int g, l, kv, cv, qd, cd;
+  place<C::kL1, 8>(g, l);
+  place<C::kCV, 8>(kv, cv);
+  place<C::kCD, 8>(qd, cd);
+
+  float dka[TKV][TCV], dva[TKV][TCV];
+#pragma unroll
+  for (int a = 0; a < TKV; ++a) {
+#pragma unroll
+    for (int c = 0; c < TCV; ++c) dka[a][c] = dva[a][c] = 0.f;
+  }
+
+  for (int n = 0; n < n_tiles; ++n) {
+    const int b = n & 1, q0 = n * BQ;
+    const float* qb = q_buf(b);
+    const float* dob = do_buf(b);
+    cp_async_wait_all();
+    if (n == 0) fma_ready<C, float, HD>(ks, nullptr, BK, true, scale);
+    fma_ready<C, float, HD>(q_buf(b), nullptr, BQ, true, scale);
+    __syncthreads();  // tile n is whole, and every thread has left tile n - 1, P and dS
+    if (n + 1 < n_tiles) load_tile(n + 1);  // lands while this tile is computed
+
+    // S = (q s)(k s)^T and dP = dout V^T, then P and dS into shared memory;
+    // keys and queries past S get zeros
+    {
+      float sc[TQ][TK], dp[TQ][TK];
+      score_tile<C, TQ, TK>(sc, qb, ks, g, l);
+      score_tile<C, TQ, TK>(dp, dob, vs, g, l);
+      const float* lb = lse_buf(b);
+      const float* db = delta_buf(b);
+#pragma unroll
+      for (int i = 0; i < TQ; ++i) {
+        const int r = g + i * C::kG1;
+        const bool row_in = q0 + r < S;
+        const float m = lb[r], dl = db[r];
+#pragma unroll
+        for (int j = 0; j < TK; ++j) {
+          const int key = l + j * C::kL1;
+          const bool in = row_in && k0 + key < S;
+          const float p = in ? fast_exp2(fmaf(sc[i][j], kLog2e, -m)) : 0.f;
+          ps[r * C::kProw + key] = p;
+          dss[r * C::kProw + key] = in ? p * (dp[i][j] - dl) : 0.f;
+        }
+      }
+    }
+    __syncthreads();  // P and dS are whole
+
+    // dV += P^T dout, dK += dS^T (q s): a query at a time
+#pragma unroll 2
+    for (int r = 0; r < BQ; ++r) {
+      float p[TKV], ds[TKV], go[TCV], qv[TCV];
+      load_cols(p, ps + r * C::kProw + kv * TKV);
+      load_cols(ds, dss + r * C::kProw + kv * TKV);
+      load_cols(go, dob + r * C::kRow + cv * TCV);
+      load_cols(qv, qb + r * C::kRow + cv * TCV);
+#pragma unroll
+      for (int a = 0; a < TKV; ++a) {
+#pragma unroll
+        for (int c = 0; c < TCV; ++c) {
+          dva[a][c] = fmaf(p[a], go[c], dva[a][c]);
+          dka[a][c] = fmaf(ds[a], qv[c], dka[a][c]);
+        }
+      }
+    }
+
+    // dQ = s dS (k s) over this key tile, four keys at a time, added in L2
+    {
+      float dqa[TQD][TCD];
+#pragma unroll
+      for (int i = 0; i < TQD; ++i) {
+#pragma unroll
+        for (int c = 0; c < TCD; ++c) dqa[i][c] = 0.f;
+      }
+#pragma unroll 4
+      for (int j = 0; j < BK; j += 4) {
+        float4 dsv[TQD];
+#pragma unroll
+        for (int i = 0; i < TQD; ++i)
+          dsv[i] = *reinterpret_cast<const float4*>(dss + (qd + i * C::kQD) * C::kProw + j);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float kx[TCD];
+          load_cols(kx, ks + (j + u) * C::kRow + cd * TCD);
+#pragma unroll
+          for (int i = 0; i < TQD; ++i) {
+            const float d = part(dsv[i], u);
+#pragma unroll
+            for (int c = 0; c < TCD; ++c) dqa[i][c] = fmaf(d, kx[c], dqa[i][c]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < TQD; ++i) {
+        const int row = q0 + qd + i * C::kQD;
+        if (row < S) red_add4(dq + base + static_cast<size_t>(row) * HD + cd * TCD, dqa[i], scale);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < TKV; ++a) {
+    const int key = k0 + kv * TKV + a;
+    if (key < S) {
+      store_cols(dk + base + static_cast<size_t>(key) * HD + cv * TCV, dka[a], scale);
+      store_cols(dv + base + static_cast<size_t>(key) * HD + cv * TCV, dva[a], 1.f);
+    }
+  }
+}
+
+template <int HD, int BQ, int BK, int TQ, int TK, int TKV, int TCV, int TQD, int TCD>
+int launch_bwd(const float* q, const float* k, const float* v, const float* o, Strides so,
+               const float* dout, Strides sd, const float* lse, float* delta, float* dq,
+               float* dk, float* dv, int bh, int heads, int s, float scale, cudaStream_t stream) {
+  using C = BwdTile<HD, BQ, BK, TQ, TK, TKV, TCV, TQD, TCD>;
+  const uintptr_t align =
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+      reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(lse) |
+      reinterpret_cast<uintptr_t>(delta) | reinterpret_cast<uintptr_t>(dq) |
+      reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv);
+  if ((align & 15) || ((so.b | so.h | so.s | sd.b | sd.h | sd.s) & 3))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (heads <= 0 || bh % heads != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long threads = static_cast<long long>(bh) * s * (HD / 4);
+  flash_bwd_prep<HD><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(
+      o, so, dout, sd, delta, dq, bh, heads, s);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto kernel = flash_bwd_fma<HD, BQ, BK, TQ, TK, TKV, TCV, TQD, TCD>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((s + BK - 1) / BK, bh);
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(q, k, v, dout, sd, lse, delta, dq, dk, dv, s,
+                                                  heads, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -849,5 +1233,45 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     return launch_fma<float, 64, 128, 8, 4, 1>(q, k, v, o, bh, s, scale, st);
   if (dtype == kF32 && hd == 32)
     return launch_fma<float, 32, 128, 8, 8, 2>(q, k, v, o, bh, s, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The training forward: f32 q, k, v [bh, s, hd] (hd 32 or 64, 16-byte
+// aligned); o written as [bh / heads, s, heads, hd] and the log-sum-exp of
+// each query row to lse [bh, s4] (s4: s rounded up to 4). Launches on
+// `stream` and returns the cudaError_t of the launch.
+extern "C" int flash_attention_fwd_lse(const void* q, const void* k, const void* v, void* o,
+                                       float* lse, int bh, int heads, int s, int hd, float scale,
+                                       void* stream) {
+  if (bh <= 0 || bh > 65535 || s <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 64)
+    return launch_fma<float, 64, 128, 8, 4, 1, true>(q, k, v, o, bh, s, scale, st, lse, heads);
+  if (hd == 32)
+    return launch_fma<float, 32, 128, 8, 8, 2, true>(q, k, v, o, bh, s, scale, st, lse, heads);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The gradient of the training forward: f32 q, k, v, dq, dk, dv [bh, s, hd];
+// o and dout [bh / heads, heads, s, hd] at the strides given (in elements,
+// multiples of 4); lse from flash_attention_fwd_lse and delta, scratch for
+// rowsum(dout o), both [bh, s4]. Writes dq, dk and dv (dq through a pre-pass
+// that zeroes it and computes delta). Launches on `stream` and returns the
+// cudaError_t of the launch.
+extern "C" int flash_attention_bwd(const float* q, const float* k, const float* v,
+                                   const float* o, long long o_sb, long long o_sh, long long o_ss,
+                                   const float* dout, long long d_sb, long long d_sh,
+                                   long long d_ss, const float* lse, float* delta, float* dq,
+                                   float* dk, float* dv, int bh, int heads, int s, int hd,
+                                   float scale, void* stream) {
+  if (bh <= 0 || bh > 65535 || s <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Strides so{o_sb, o_sh, o_ss}, sd{d_sb, d_sh, d_ss};
+  if (hd == 64)
+    return launch_bwd<64, 64, 128, 8, 4, 8, 4, 4, 4>(q, k, v, o, so, dout, sd, lse, delta, dq, dk,
+                                                     dv, bh, heads, s, scale, st);
+  if (hd == 32)
+    return launch_bwd<32, 64, 128, 8, 4, 4, 4, 2, 4>(q, k, v, o, so, dout, sd, lse, delta, dq, dk,
+                                                     dv, bh, heads, s, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

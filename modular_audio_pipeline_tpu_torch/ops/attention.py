@@ -6,16 +6,19 @@ kernel (``csrc/flash_attention.cu``) replaces the Pallas ``_flash_kernel``;
 the CPU and as the oracle the kernel is held against on the card.
 
 The gradient. On the card, when autograd records (a training step),
-``flash_attention`` goes through :class:`_FlashAttention`: the forward is
-the kernel's launch, and the backward recomputes the attention through
-``attention_reference`` and returns that function's vector-Jacobian
-product for q, k and v. That is the JAX package's ``custom_vjp``
-(``_flash_attention_bwd``), whose backward is XLA einsums outside any
-Pallas kernel: there is no TPU kernel of the backward to port, so the
-plain backward here is the port of that design, not a fallback. The
-recompute holds ``[B, H, S, S]`` f32 logits and probabilities while it
-runs. Under ``no_grad``, or when no input needs a gradient, the kernel
-is launched directly and nothing is saved.
+``flash_attention`` goes through :class:`_FlashAttention`. In f32 (every
+trainer of the port) the forward is the kernel's training variant, which
+also writes each query row's log-sum-exp and lays the output out as the
+heads are merged, ``[B, S, H, D]`` (returned as a ``[B, H, S, D]`` view),
+and the backward is one launch of the flash backward kernel
+(``flash_bwd_fma``): it recomputes each tile of probabilities from q, k and
+that log-sum-exp and never holds a ``[B, H, S, S]`` tensor. The JAX
+package's ``custom_vjp`` (``_flash_attention_bwd``) recomputes through XLA
+einsums, and it has no Pallas kernel of the backward; its design stays here
+for bf16, where the backward differentiates ``attention_reference`` again
+(``[B, H, S, S]`` f32 logits and probabilities while it runs). Under
+``no_grad``, or when no input needs a gradient, the plain forward is
+launched directly and nothing is saved.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "attention_reference", "flash_arithmetic_emulation"]
+__all__ = ["flash_attention", "attention_reference", "flash_arithmetic_emulation",
+           "flash_lse_emulation", "flash_backward_emulation"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -61,6 +65,22 @@ def flash_arithmetic_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     states what the kernel commits to, for the CPU tests that hold it
     against the JAX package and for explaining a mismatch on the card.
     """
+    return _online_softmax(q, k, v, tile)[0]
+
+
+def flash_lse_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The training forward's arithmetic (f32): ``(o, lse)``, the output of
+    :func:`flash_arithmetic_emulation` and each row's log-sum-exp in base 2,
+    ``m log2(e) + log2(l)``, as ``[B, H, S]``. What ``_flash_lse_launch``
+    returns, for the CPU tests that bind the launch to it."""
+    if q.dtype != torch.float32:
+        raise ValueError(f"flash_attention: the log-sum-exp forward is f32, got {q.dtype}")
+    out, m, l = _online_softmax(q, k, v, 128)
+    return out, (m * 1.4426950408889634 + torch.log2(l)).squeeze(-1)
+
+
+def _online_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tile: int):
+    """(output, running max, running sum) of the forward's arithmetic."""
     dt = q.dtype
     scale = q.shape[-1] ** -0.25
     log2e = 1.4426950408889634
@@ -77,30 +97,86 @@ def flash_arithmetic_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         l = l * corr + p.sum(dim=-1, keepdim=True)
         acc = acc * corr + torch.matmul(p.to(dt).float(), vf[..., k0:k0 + tile, :])
         m = m_new
-    return (acc / l).to(dt)
+    return (acc / l).to(dt), m, l
+
+
+def flash_backward_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, grad_o: torch.Tensor, key_tile: int = 128,
+                             query_tile: int = 64):
+    """The backward kernel's arithmetic (f32), step by step, in plain PyTorch.
+
+    ``lse`` is the forward's log-sum-exp in base 2, ``[B, H, S']`` with
+    S' >= S (the kernel pads it). delta = rowsum(grad_o * o); q and k scaled
+    by D^-0.25; for each tile of ``key_tile`` keys, over tiles of
+    ``query_tile`` queries: S = (q s)(k s)^T, P = exp2(S log2(e) - lse),
+    dV += P^T dO, dP = dO V^T, dS = P (dP - delta), dK += dS^T (q s), and
+    D^-0.25 dS (k s) added into dQ; dK times D^-0.25 at the end. The kernel's
+    tiles are 128 keys and 64 queries (``flash_bwd_fma``); its additions into
+    dQ come in whatever order the key tiles finish. Returns (dq, dk, dv).
+    Nothing on the main path calls this: it states what the kernel commits
+    to, for the CPU tests that hold it against the JAX package.
+    """
+    scale = q.shape[-1] ** -0.25
+    log2e = 1.4426950408889634
+    s = q.shape[-2]
+    qs, ks, vf, go = (q * scale).float(), (k * scale).float(), v.float(), grad_o.float()
+    lse = lse[..., :s, None].float()
+    delta = (go * o.float()).sum(dim=-1, keepdim=True)
+    dq, dk, dv = torch.zeros_like(qs), torch.zeros_like(ks), torch.zeros_like(vf)
+    for k0 in range(0, s, key_tile):
+        keys = slice(k0, k0 + key_tile)
+        kt, vt = ks[..., keys, :], vf[..., keys, :]
+        dkt, dvt = torch.zeros_like(kt), torch.zeros_like(vt)
+        for q0 in range(0, s, query_tile):
+            rows = slice(q0, q0 + query_tile)
+            qt, gt = qs[..., rows, :], go[..., rows, :]
+            p = torch.exp2(torch.matmul(qt, kt.transpose(-1, -2)) * log2e - lse[..., rows, :])
+            ds = p * (torch.matmul(gt, vt.transpose(-1, -2)) - delta[..., rows, :])
+            dvt += torch.matmul(p.transpose(-1, -2), gt)
+            dkt += torch.matmul(ds.transpose(-1, -2), qt)
+            dq[..., rows, :] += torch.matmul(ds, kt) * scale
+        dk[..., keys, :] = dkt * scale
+        dv[..., keys, :] = dvt
+    return dq, dk, dv
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = _build.load("flash_attention").flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = _build.load("flash_attention")
+    lib.flash_attention_fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                                        + [ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attention_fwd_lse.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                                            + [ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attention_bwd.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+        + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_void_p])
+    for fn in (lib.flash_attention_fwd, lib.flash_attention_fwd_lse, lib.flash_attention_bwd):
+        fn.restype = ctypes.c_int
+    return lib
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The kernel forward with the JAX package's recompute backward."""
+    """The kernel forward; in f32 the flash backward kernel, in bf16 the JAX
+    package's recompute backward (module docstring)."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        return _flash_launch(q, k, v)
+        if q.dtype != torch.float32:
+            ctx.save_for_backward(q, k, v)
+            return _flash_launch(q, k, v)
+        o, lse = _flash_lse_launch(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_o):
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        saved = ctx.saved_tensors
+        if saved[0].dtype == torch.float32:  # q, k, v, o and the log-sum-exp
+            grads = _flash_backward(*saved, grad_o)
+            return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+        inputs = [t.detach().requires_grad_(need) for t, need in zip(saved, ctx.needs_input_grad)]
         wanted = [t for t in inputs if t.requires_grad]
         with torch.enable_grad():
             grads = iter(torch.autograd.grad(attention_reference(*inputs), wanted, grad_o))
@@ -114,8 +190,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     stream (contiguous bf16 or f32, D of 32 or 64) and raises on anything
     it does not take or on a failed launch; on a CPU tensor it runs
     :func:`attention_reference`, which autograd differentiates. On the card
-    the result is differentiable when autograd records: the backward
-    recomputes through :func:`attention_reference` (module docstring).
+    the result is differentiable when autograd records: in f32 through the
+    flash backward kernel, in bf16 by recomputing through
+    :func:`attention_reference` (module docstring). The f32 result that
+    records a gradient is a view of ``[B, S, H, D]`` storage, so merging its
+    heads copies nothing.
 
     bf16 at D = 64 (the encoder of every model wider than test-tiny) runs on
     the tensor cores: a pre-pass writes ``k * D^-0.25`` rounded to bf16 into
@@ -133,8 +212,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return _flash_launch(q, k, v)
 
 
-def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """One launch of the kernel on the current stream; counts it."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raises on q, k, v the kernel does not take."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
@@ -147,24 +226,78 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
         raise ValueError("flash_attention: q/k/v on different devices")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q/k/v must be contiguous")
-    b, h, s, d = q.shape
-    if d not in (32, 64):
-        raise ValueError(f"flash_attention: head dim {d} not built (32 or 64)")
+    if q.shape[-1] not in (32, 64):
+        raise ValueError(f"flash_attention: head dim {q.shape[-1]} not built (32 or 64)")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q/k/v must start on 16-byte boundaries")
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"flash_attention: {what} launch failed (cudaError {rc})")
+
+
+def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel on the current stream; counts it."""
+    _check(q, k, v)
+    b, h, s, d = q.shape
     o = torch.empty_like(q)
     scratch = None
     if q.dtype == torch.bfloat16 and d == 64:
         scratch = torch.empty_like(k)  # k * D^-0.25, written by the kernel's pre-pass
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                       None if scratch is None else scratch.data_ptr(),
-                       b * h, s, d, _DTYPE_CODES[q.dtype], d ** -0.25, stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed (cudaError {rc})")
+        rc = _lib().flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                        None if scratch is None else scratch.data_ptr(),
+                                        b * h, s, d, _DTYPE_CODES[q.dtype], d ** -0.25, stream)
+    _raise_on(rc, "kernel")
     flash_attention.launches += 1
     return o
 
 
-flash_attention.launches = 0  # kernel launches since the last reset
+def _flash_lse_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The training forward (f32): one launch that returns o, a ``[B, H, S,
+    D]`` view of ``[B, S, H, D]`` storage, and each row's log-sum-exp in
+    base 2, ``[B, H, S4]`` (S rounded up to 4; the rows past S are unset).
+    Counts as a launch of the forward."""
+    _check(q, k, v)
+    if q.dtype != torch.float32:
+        raise ValueError(f"flash_attention: the log-sum-exp forward is f32, got {q.dtype}")
+    b, h, s, d = q.shape
+    o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, (s + 3) // 4 * 4), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _lib().flash_attention_fwd_lse(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                            o.data_ptr(), lse.data_ptr(), b * h, h, s, d,
+                                            d ** -0.25, stream)
+    _raise_on(rc, "kernel")
+    flash_attention.launches += 1
+    return o.transpose(1, 2), lse
+
+
+def _flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                    lse: torch.Tensor, grad_o: torch.Tensor):
+    """One launch of the backward kernel (with its pre-pass) on the current
+    stream: (dq, dk, dv) of the f32 forward that gave ``o`` and ``lse``.
+    o and grad_o may have any strides whose rows are whole 16-byte units;
+    any other grad_o is copied first. Counts ``backward_launches``."""
+    if (grad_o.stride(-1) != 1 or any(st % 4 for st in grad_o.stride()[:3])
+            or grad_o.data_ptr() % 16):
+        grad_o = grad_o.contiguous()
+    b, h, s, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)  # rowsum(grad_o * o), written by the pre-pass
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _lib().flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *o.stride()[:3],
+            grad_o.data_ptr(), *grad_o.stride()[:3], lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, h, s, d, d ** -0.25, stream)
+    _raise_on(rc, "backward")
+    flash_attention.backward_launches += 1
+    return dq, dk, dv
+
+
+flash_attention.launches = 0  # kernel launches of the forward since the last reset
+flash_attention.backward_launches = 0  # launches of the backward kernel since the last reset

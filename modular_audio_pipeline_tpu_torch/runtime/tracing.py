@@ -42,7 +42,8 @@ __all__ = ["span", "spanned", "count", "record", "Recorder", "SpanRecord",
            "LAUNCH_COUNTERS"]
 
 # counters the port already keeps, read as snapshots at each end of a span
-LAUNCH_COUNTERS = ("flash_attention", "ancestor_attention", "int8_matmul", "fetch")
+LAUNCH_COUNTERS = ("flash_attention", "flash_attention.backward", "ancestor_attention",
+                   "int8_matmul", "fetch")
 
 # per thread: the installed recorder, and the CUDA timing events that
 # closed recorders handed back (``events``)
@@ -119,8 +120,8 @@ def _launch_snapshot() -> tuple:
     from ..ops.quant import int8_matmul
     from .integrity import counts
 
-    return (flash_attention.launches, ancestor_attention.launches, int8_matmul.launches,
-            counts["fetch"])
+    return (flash_attention.launches, flash_attention.backward_launches,
+            ancestor_attention.launches, int8_matmul.launches, counts["fetch"])
 
 
 class _Span:

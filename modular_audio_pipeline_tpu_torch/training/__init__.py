@@ -4,7 +4,7 @@ synthetic data.
 
 Counterpart of ``modular_audio_pipeline_tpu/training``. The train steps run
 on one card (a CPU when the caller asks for it); the encoder's flash kernel
-is differentiated through its recompute backward (``ops/attention.py``).
+is differentiated by its backward kernel (``ops/attention.py``).
 Checkpoints save as the JAX layout's ``params.npz``, which both packages
 load. Multi-card data and tensor parallelism are not ported yet.
 """

@@ -12,8 +12,8 @@ CPU:
 - :func:`train_segmentation`: permutation-invariant powerset
   cross-entropy on synthetic overlapping scenes for
   :class:`~..models.diarization.segmentation.SegmentationNet`, whose
-  self-attention is the flash kernel (f32, head dim 32) with its recompute
-  backward.
+  self-attention is the flash kernel (f32, head dim 32) with its backward
+  kernel.
 - :func:`calibrate_threshold` and :func:`calibrate_single_cutoff`: the
   AHC cut distance and the single-speaker cutoff on held-out synthetic
   conversations, written to ``calibration.json`` beside the embedder.

@@ -7,7 +7,7 @@ are the port's tree of leaf tensors (``models/whisper/model.py``'s
 layout); :func:`make_train_step`'s ``init_state`` makes every leaf require
 a gradient and binds the optimizer to them, and ``train_step`` updates
 them in place. On the card the encoder's self-attention is the flash
-kernel, differentiated through its recompute backward
+kernel, differentiated by its f32 backward kernel
 (``ops/attention.py``). The f32 convolutions run with TF32 off, as the
 JAX package's f32 arithmetic.
 
@@ -116,7 +116,7 @@ def make_train_step(dims: WhisperDims, optimizer: Optional[Adam] = None, mesh=No
         with no_tf32():
             with tracing.span("train.forward"):
                 loss = _forward_loss(state.params, dims, mel, tokens, targets, data_group)
-            with tracing.span("train.backward"):  # the flash kernel's recompute backward
+            with tracing.span("train.backward"):  # the flash backward kernel, once a layer
                 loss.backward()
         loss = loss.detach()
         if data_group is not None:

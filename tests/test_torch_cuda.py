@@ -555,8 +555,9 @@ def test_serving_networks_on_card_match_cpu(cuda):
                                    (2, 20, 1500, 64)])
 def test_flash_gradient_matches_plain(cuda, shape):
     """On a CUDA tensor that needs a gradient, flash_attention goes through
-    its autograd.Function: one kernel launch forward, and q/k/v gradients
-    from the plain version's recompute, held to the f32 tolerance over the
+    its autograd.Function: one kernel launch forward (the backward kernel
+    counts apart), and q/k/v gradients from the flash backward kernel, held
+    to autograd through the plain version at the f32 tolerance over the
     largest gradient."""
     q, k, v, g = (torch.randn(shape, generator=cuda, device="cuda") for _ in range(4))
     qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
@@ -586,9 +587,121 @@ def test_flash_saves_nothing_without_autograd(cuda):
     assert q.grad is not None and k.grad is None and v.grad is None
 
 
+BACKWARD_EDGES = [(1, 3, s, hd) for s in (63, 64, 65, 127, 128, 129) for hd in (32, 64)]
+
+
+@pytest.mark.parametrize("merged", [False, True], ids=["plain", "merged"])
+@pytest.mark.parametrize("shape", [(2, 3, 129, 64), (1, 2, 1500, 32), (2, 4, 1001, 32),
+                                   (2, 20, 1500, 64)] + BACKWARD_EDGES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_backward_kernel_matches_recompute(cuda, shape, merged):
+    """The f32 backward kernel against autograd through the plain version
+    (the recompute it replaced), over the largest gradient: ragged tiles of
+    64 queries and 128 keys and the edges of both, over several heads (a
+    tail tile that reached the next head would show). The tolerance is the
+    f32 one: the sums run in another order (tiles, and dq's additions in
+    L2 in whatever order the key tiles finish), with exp2 against the saved
+    log-sum-exp. ``merged``: the gradient arrives as the encoder hands it
+    back, a view of [B, S, H, D] storage, and is read in place."""
+    b, h, s, d = shape
+    q, k, v, g = (torch.randn(shape, generator=cuda, device="cuda") for _ in range(4))
+
+    def grads(fn):
+        qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+        out = fn(qs, ks, vs)
+        if merged:
+            merge = lambda t: t.transpose(1, 2).reshape(b, s, h * d)  # noqa: E731
+            merge(out).backward(merge(g))
+        else:
+            out.backward(g)
+        return qs.grad, ks.grad, vs.grad
+
+    before = attn_ops.flash_attention.backward_launches
+    got = grads(attn_ops.flash_attention)
+    torch.cuda.synchronize()
+    assert attn_ops.flash_attention.backward_launches == before + 1
+    for a, want in zip(got, grads(attn_ops.attention_reference)):
+        assert ((a - want).abs().max() / want.abs().max()).item() <= TOL[torch.float32]
+
+
+def test_flash_backward_kernel_gives_only_the_gradients_asked_for(cuda):
+    """q alone needs a gradient: None for k and v, and q's gradient that
+    of the plain version's recompute."""
+    q, k, v = (torch.randn((2, 3, 300, 64), generator=cuda, device="cuda") for _ in range(3))
+    qa, qr = q.clone().requires_grad_(True), q.clone().requires_grad_(True)
+    attn_ops.flash_attention(qa, k, v).sum().backward()
+    attn_ops.attention_reference(qr, k, v).sum().backward()
+    assert k.grad is None and v.grad is None
+    assert ((qa.grad - qr.grad).abs().max() / qr.grad.abs().max()).item() <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("wants", ["qkv", "q"])
+@pytest.mark.parametrize("shape", [(2, 3, 129, 64), (2, 4, 1001, 32)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_bf16_gradient_recomputes_through_the_plain_version(cuda, shape, wants):
+    """bf16 keeps the recompute backward: no launch of the backward kernel,
+    None for each input that asked for no gradient, and the others within
+    the bf16 tolerance of autograd through the plain version over the
+    largest gradient (the same recompute; only the forward differs, and
+    the backward does not read it)."""
+    q, k, v, g = (torch.randn(shape, generator=cuda, device="cuda").to(torch.bfloat16)
+                  for _ in range(4))
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_(name in wants) for t, name in zip((q, k, v), "qkv")]
+        fn(*ins).backward(g)
+        return [t.grad for t in ins]
+
+    before = attn_ops.flash_attention.backward_launches
+    got = grads(attn_ops.flash_attention)
+    torch.cuda.synchronize()
+    assert attn_ops.flash_attention.backward_launches == before
+    for name, a, want in zip("qkv", got, grads(attn_ops.attention_reference)):
+        if name not in wants:
+            assert a is None
+            continue
+        assert a.dtype == torch.bfloat16
+        assert ((a - want).abs().max() / want.abs().max()).float().item() <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 129, 64), (2, 4, 1001, 32), (1, 3, 63, 32)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_log_sum_exp_forward_equals_the_plain_launch(cuda, shape):
+    """The training forward gives the plain launch's output bit for bit (a
+    view of [B, S, H, D] storage, so merging its heads copies nothing), and
+    a log-sum-exp in base 2 within 1e-5 of the plain version's logits'."""
+    q, k, v = (torch.randn(shape, generator=cuda, device="cuda") for _ in range(3))
+    before = attn_ops.flash_attention.launches
+    o, lse = attn_ops._flash_lse_launch(q, k, v)
+    plain = attn_ops._flash_launch(q, k, v)
+    torch.cuda.synchronize()
+    assert attn_ops.flash_attention.launches == before + 2
+    assert torch.equal(o, plain) and o.transpose(1, 2).is_contiguous()
+    scale = shape[-1] ** -0.25
+    logits = torch.matmul((q * scale).double(), (k * scale).double().transpose(-1, -2))
+    want = torch.logsumexp(logits, dim=-1) / np.log(2.0)
+    assert lse.shape[-1] % 4 == 0 and lse.shape[-1] - shape[2] < 4
+    assert (lse[..., :shape[2]].double() - want).abs().max().item() <= 1e-5
+
+
+def test_flash_backward_launches_count_once_a_backward(cuda):
+    """``backward_launches`` rises by one a backward and by none under
+    no_grad or in the forward; ``launches`` counts the forward alone."""
+    q, k, v = (torch.randn((1, 2, 200, 32), generator=cuda, device="cuda", requires_grad=True)
+               for _ in range(3))
+    fwd, bwd = attn_ops.flash_attention.launches, attn_ops.flash_attention.backward_launches
+    with torch.no_grad():
+        attn_ops.flash_attention(q, k, v)
+    out = attn_ops.flash_attention(q, k, v)
+    assert attn_ops.flash_attention.backward_launches == bwd
+    out.sum().backward()
+    assert attn_ops.flash_attention.backward_launches == bwd + 1
+    assert attn_ops.flash_attention.launches == fwd + 2
+
+
 def test_train_step_on_card_matches_cpu(cuda):
     """Two AdamW steps at test-tiny from the shipped bundle, the encoder's
-    attention through the kernel and its recompute backward on the card:
+    attention through the kernel and its backward kernel on the card:
     losses within 1e-5 relative of the CPU's, every leaf's gradient at step
     0 within 1e-4 of its norm, parameters after two steps under the Adam
     sign-flip tolerance (tests/test_torch_training.py)."""
@@ -612,15 +725,16 @@ def test_train_step_on_card_matches_cpu(cuda):
         init_state, step = wt.make_train_step(dims, optim.adamw(1e-3, weight_decay=0.01))
         state = init_state(params)
         batch = [t.to(dev) for t in (mel, tokens, targets)]
-        before = attn_ops.flash_attention.launches
+        before = (attn_ops.flash_attention.launches, attn_ops.flash_attention.backward_launches)
         state, loss0 = step(state, *batch)
         grads = [p.grad.cpu() for p in wt.tree_leaves(state.params)]
         state, loss1 = step(state, *batch)
-        launched = attn_ops.flash_attention.launches - before
+        launched = (attn_ops.flash_attention.launches - before[0],
+                    attn_ops.flash_attention.backward_launches - before[1])
         runs[dev] = (float(loss0), float(loss1), grads,
                      [p.detach().cpu() for p in wt.tree_leaves(state.params)], launched)
     card, cpu = runs["cuda"], runs["cpu"]
-    assert card[4] == 2 * dims.n_audio_layer and cpu[4] == 0
+    assert card[4] == (2 * dims.n_audio_layer,) * 2 and cpu[4] == (0, 0)
     for i in (0, 1):
         assert abs(card[i] - cpu[i]) <= 1e-5 * abs(cpu[i])
     for g, h in zip(card[2], cpu[2]):
@@ -628,6 +742,33 @@ def test_train_step_on_card_matches_cpu(cuda):
     diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(card[3], cpu[3])])
     assert diffs.max().item() <= 2 * 1e-3 * 2
     assert (diffs <= 1e-3 * 1e-3 * 2).float().mean().item() >= 0.999
+
+
+def test_train_backward_span_counts_the_backward_kernel(cuda):
+    """A test-tiny train step under a recorder: ``train.backward`` counts one
+    launch of the backward kernel an encoder layer, ``train.forward`` one
+    forward launch a layer and no backward."""
+    from modular_audio_pipeline_tpu_torch.models.whisper.config import WHISPER_DIMS
+    from modular_audio_pipeline_tpu_torch.models.whisper.convert import (
+        load_params, params_from_numpy)
+    from modular_audio_pipeline_tpu_torch.runtime import tracing
+    from modular_audio_pipeline_tpu_torch.training import optim
+    from modular_audio_pipeline_tpu_torch.training import whisper_train as wt
+    from modular_audio_pipeline_tpu_torch.utils import SHIPPED_WEIGHTS
+
+    dims = WHISPER_DIMS["test-tiny"]
+    params = params_from_numpy(load_params(str(SHIPPED_WEIGHTS / "whisper-test-tiny")), "cuda",
+                               torch.float32)
+    init_state, step = wt.make_train_step(dims, optim.adamw(1e-3))
+    mel = torch.randn((2, dims.n_mels, 3000), generator=cuda, device="cuda")
+    tokens = torch.randint(0, 300, (2, 24), generator=cuda, device="cuda")
+    with tracing.record() as rec:
+        step(init_state(params), mel, tokens, torch.roll(tokens, -1, 1))
+    summary = rec.summary()
+    layers = dims.n_audio_layer
+    assert summary["train.backward"]["counts"].get("flash_attention.backward") == layers
+    assert summary["train.forward"]["counts"].get("flash_attention") == layers
+    assert "flash_attention.backward" not in summary["train.forward"]["counts"]
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32, torch.int64,

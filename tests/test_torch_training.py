@@ -7,7 +7,12 @@ the JAX train step and the port's, in f32 on the CPU.
 Tolerances:
 - the flash kernel's VJP: the port's q/k/v gradients within 1e-5 of JAX's
   ``jax.vjp`` over its Pallas kernel in interpret mode (f32, another order
-  of summation);
+  of summation), and the backward kernel's arithmetic
+  (``flash_backward_emulation``) within 1e-5 of ``jax.vjp`` of the JAX
+  ``attention_reference`` (f32: tiles, exp2 against the saved log-sum-exp
+  and delta from o and dO sum in another order than XLA's softmax
+  gradient); in bf16 (the recompute backward) within 3e-2 of the largest
+  gradient of ``jax.vjp`` (the test's docstring);
 - the loss within 1e-5 relative, and each leaf's gradient within 1e-4 of its
   norm (the f32 drift of 2 + 2 layers, forward and backward);
 - parameters after 4 Adam steps, the two-part tolerance of Adam's sign
@@ -61,14 +66,22 @@ def assert_adam_close(got: dict, want: dict, lr: float, steps: int):
 
 # -- kernel 1's gradient -------------------------------------------------------
 
+def bind_launches_to_emulations(monkeypatch):
+    """The CPU has no kernel: the f32 Function's two launches become their
+    arithmetic in plain PyTorch (the forward with its log-sum-exp, and the
+    backward kernel's)."""
+    monkeypatch.setattr(pt_attention, "_flash_lse_launch", pt_attention.flash_lse_emulation)
+    monkeypatch.setattr(pt_attention, "_flash_backward", pt_attention.flash_backward_emulation)
+
+
 @pytest.mark.parametrize("hd", [64, 32])
 @pytest.mark.parametrize("route", ["function", "cpu"])
 def test_flash_vjp_equals_jax_interpret(monkeypatch, hd, route):
     """JAX: ``jax.vjp`` of ``flash_attention(..., interpret=True)``, the
     Pallas kernel in interpret mode forward and the reference backward. The
     port: its ``autograd.Function`` (the card's route; the CPU has no
-    kernel, so the forward's launch is bound to the plain version) and the
-    CPU route (autograd through ``attention_reference``)."""
+    kernel, so the launches are bound to their emulations) and the CPU
+    route (autograd through ``attention_reference``)."""
     rng = np.random.default_rng(hd)
     q, k, v, g = (rng.standard_normal((1, 2, 40, hd)).astype(np.float32) for _ in range(4))
     out_j, vjp = jax.vjp(lambda a, b, c: jax_attention.flash_attention(a, b, c, interpret=True),
@@ -77,7 +90,7 @@ def test_flash_vjp_equals_jax_interpret(monkeypatch, hd, route):
 
     qt, kt, vt = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
     if route == "function":
-        monkeypatch.setattr(pt_attention, "_flash_launch", pt_attention.attention_reference)
+        bind_launches_to_emulations(monkeypatch)
         out = pt_attention._FlashAttention.apply(qt, kt, vt)
     else:
         out = pt_attention.flash_attention(qt, kt, vt)
@@ -88,17 +101,89 @@ def test_flash_vjp_equals_jax_interpret(monkeypatch, hd, route):
 
 
 def test_flash_function_gives_only_the_gradients_asked_for(monkeypatch):
-    """q alone needs a gradient: the backward returns None for k and v."""
-    monkeypatch.setattr(pt_attention, "_flash_launch", pt_attention.attention_reference)
+    """q alone needs a gradient: the backward returns None for k and v, and
+    q's gradient is the backward launch's dq."""
+    bind_launches_to_emulations(monkeypatch)
     rng = np.random.default_rng(5)
     q, k, v = (torch.tensor(rng.standard_normal((1, 1, 9, 32)), dtype=torch.float32)
                for _ in range(3))
     q.requires_grad_(True)
     pt_attention._FlashAttention.apply(q, k, v).sum().backward()
     assert q.grad is not None and k.grad is None and v.grad is None
-    ref_q = q.detach().clone().requires_grad_(True)
-    pt_attention.attention_reference(ref_q, k, v).sum().backward()
-    assert torch.equal(q.grad, ref_q.grad)
+    o, lse = pt_attention.flash_lse_emulation(q.detach(), k, v)
+    dq, _, _ = pt_attention.flash_backward_emulation(q.detach(), k, v, o, lse, torch.ones_like(o))
+    assert torch.equal(q.grad, dq)
+
+
+def _refuse(*args):
+    raise AssertionError("the f32 route was taken by a bf16 call")
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("wants", ["qkv", "q", "kv"])
+def test_flash_function_bf16_recomputes_through_the_plain_version(monkeypatch, wants, hd):
+    """bf16 keeps the recompute backward. With the launch bound to the plain
+    version, the Function's gradients are autograd through
+    ``attention_reference`` bit for bit, None for each input that asked for
+    none, and within 3e-2 of the largest gradient of ``jax.vjp`` of the JAX
+    ``attention_reference`` in bf16: each side rounds the scaled inputs, the
+    probabilities and every gradient on the way to bf16 (2^-8 each) in its
+    own order, which leaves each up to about 1.8e-2 from the f64 gradient,
+    so the two sides may differ by twice that."""
+    monkeypatch.setattr(pt_attention, "_flash_launch", pt_attention.attention_reference)
+    monkeypatch.setattr(pt_attention, "_flash_lse_launch", _refuse)
+    monkeypatch.setattr(pt_attention, "_flash_backward", _refuse)
+    rng = np.random.default_rng(13 + hd)
+    q, k, v, g = (rng.standard_normal((1, 2, 70, hd)).astype(np.float32) for _ in range(4))
+    bf = [torch.tensor(x).to(torch.bfloat16) for x in (q, k, v)]
+    go = torch.tensor(g).to(torch.bfloat16)
+    got = [x.clone().requires_grad_(name in wants) for x, name in zip(bf, "qkv")]
+    pt_attention._FlashAttention.apply(*got).backward(go)
+    plain = [x.clone().requires_grad_(name in wants) for x, name in zip(bf, "qkv")]
+    pt_attention.attention_reference(*plain).backward(go)
+    _, vjp = jax.vjp(jax_attention.attention_reference,
+                     *(jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v)))
+    want = vjp(jnp.asarray(g, dtype=jnp.bfloat16))
+    for name, a, p, w in zip("qkv", got, plain, want):
+        if name not in wants:
+            assert a.grad is None
+            continue
+        assert a.grad.dtype == torch.bfloat16 and torch.equal(a.grad, p.grad)
+        w = np.asarray(w, dtype=np.float32)
+        assert np.abs(a.grad.float().numpy() - w).max() <= 3e-2 * np.abs(w).max()
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("shape", [(1, 2, 40), (2, 3, 64), (1, 2, 129), (2, 1, 200)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_backward_emulation_equals_jax_vjp(shape, hd):
+    """The backward kernel's arithmetic, from the forward's own output and
+    log-sum-exp, against ``jax.vjp`` of the JAX ``attention_reference``:
+    one key tile and one query tile (40, 64), and S past a multiple of the
+    64-query and 128-key tiles (129, 200), so ragged tiles of both."""
+    rng = np.random.default_rng(shape[-1] * hd)
+    q, k, v, g = (rng.standard_normal(shape + (hd,)).astype(np.float32) for _ in range(4))
+    _, vjp = jax.vjp(jax_attention.attention_reference, *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    qt, kt, vt, gt = (torch.from_numpy(x) for x in (q, k, v, g))
+    o, lse = pt_attention.flash_lse_emulation(qt, kt, vt)
+    got = pt_attention.flash_backward_emulation(qt, kt, vt, o, lse, gt)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5)
+
+
+def test_flash_backward_emulation_reads_a_padded_log_sum_exp():
+    """The kernel's log-sum-exp is [B, H, S4], S rounded up to 4 with the
+    rows past S unset: the emulation reads only the first S."""
+    rng = np.random.default_rng(11)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((1, 2, 45, 32)).astype(np.float32))
+                  for _ in range(4))
+    o, lse = pt_attention.flash_lse_emulation(q, k, v)
+    padded = torch.cat([lse, torch.full((1, 2, 3), float("nan"))], dim=-1)
+    want = pt_attention.flash_backward_emulation(q, k, v, o, lse, g)
+    got = pt_attention.flash_backward_emulation(q, k, v, o, padded, g)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 # -- the train step ----------------------------------------------------------------
