@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...runtime import tracing
+
 __all__ = ["LlamaConfig", "LLAMA_CONFIGS", "LMCache", "LlamaLM", "forward", "init_params",
            "params_from_jax", "convert_hf_llama"]
 
@@ -212,29 +214,36 @@ class LlamaLM:
         temperature 0, else drawn by ``torch.multinomial`` from a generator
         seeded with ``seed``. Stops after emitting ``eos_id``, which is
         included, as in the JAX package (whose samples differ: another
-        generator)."""
+        generator). A request is the span ``lm.generate``, holding
+        ``lm.prefill`` and ``lm.decode``; the counter ``lm.decode_steps``
+        counts the decode loop's forwards."""
         cfg = self.cfg
         dev = self.params["tok_emb"].device
         prompt = torch.as_tensor(np.asarray(prompt_ids), dtype=torch.int64, device=dev)[None]
         ctx = min(cfg.max_seq, prompt.shape[1] + max_new_tokens + 1)
-        cache = LMCache.zeros(cfg, 1, ctx, self.params["tok_emb"].dtype, dev)
-        logits, cache = forward(self.params, cfg, prompt, cache)
-        gen = torch.Generator(device=dev).manual_seed(seed) if temperature > 0 else None
         out = []
-        last = logits[:, -1]
-        for _ in range(max_new_tokens):
-            if temperature > 0:
-                tok = torch.multinomial(torch.softmax(last / temperature, dim=-1), 1,
-                                        generator=gen)[0, 0]
-            else:
-                tok = last[0].argmax()  # first max, as jnp.argmax
-            tok = int(tok)
-            out.append(tok)
-            if tok == eos_id:
-                break
-            logits, cache = forward(self.params, cfg,
-                                    torch.tensor([[tok]], dtype=torch.int64, device=dev), cache)
-            last = logits[:, -1]
+        with tracing.span("lm.generate"):
+            cache = LMCache.zeros(cfg, 1, ctx, self.params["tok_emb"].dtype, dev)
+            with tracing.span("lm.prefill"):
+                logits, cache = forward(self.params, cfg, prompt, cache)
+                last = logits[:, -1]
+            gen = torch.Generator(device=dev).manual_seed(seed) if temperature > 0 else None
+            with tracing.span("lm.decode"):
+                for _ in range(max_new_tokens):
+                    if temperature > 0:
+                        tok = torch.multinomial(torch.softmax(last / temperature, dim=-1), 1,
+                                                generator=gen)[0, 0]
+                    else:
+                        tok = last[0].argmax()  # first max, as jnp.argmax
+                    tok = int(tok)
+                    out.append(tok)
+                    if tok == eos_id:
+                        break
+                    tracing.count("lm.decode_steps")
+                    logits, cache = forward(
+                        self.params, cfg, torch.tensor([[tok]], dtype=torch.int64, device=dev),
+                        cache)
+                    last = logits[:, -1]
         return np.asarray(out, dtype=np.int32)
 
 

@@ -12,7 +12,9 @@ bit. numpy has no type for ``BF16`` and the ``F8_*`` types: those are
 refused with a :class:`ModelLoadError` that names the dtype, except that
 ``bf16_as_f32=True`` widens ``BF16`` to f32 exactly (the 16 bits become
 the high half of the f32 word), as ``ml_dtypes``' ``astype(np.float32)``
-does. A widened tensor is read into memory, not mapped.
+does. A widened tensor is read into memory, not mapped. ``bf16_bits=True``
+gives ``BF16`` as its raw 16 bits (``uint16``), mapped like the other
+types, for a caller that keeps them as bf16.
 """
 
 from __future__ import annotations
@@ -39,9 +41,11 @@ SAFETENSORS_DTYPES = {
 _MAX_HEADER = 100 * 1024 * 1024  # safetensors' own limit on the JSON header
 
 
-def load_safetensors(path, bf16_as_f32: bool = False) -> Dict[str, np.ndarray]:
+def load_safetensors(path, bf16_as_f32: bool = False,
+                     bf16_bits: bool = False) -> Dict[str, np.ndarray]:
     """``path`` -> {tensor name: array}, in the file's dtypes and shapes
-    (``BF16`` as f32 where ``bf16_as_f32``)."""
+    (``BF16`` as f32 where ``bf16_as_f32``, as its bits where
+    ``bf16_bits``)."""
     path = Path(path)
     size = path.stat().st_size
     with open(path, "rb") as f:
@@ -63,14 +67,15 @@ def load_safetensors(path, bf16_as_f32: bool = False) -> Dict[str, np.ndarray]:
         if name == "__metadata__":
             continue
         dt = spec["dtype"]
-        widen = bf16_as_f32 and dt == "BF16"
-        if dt not in SAFETENSORS_DTYPES and not widen:
+        bits = bf16_bits and dt == "BF16"
+        widen = bf16_as_f32 and dt == "BF16" and not bits
+        if dt not in SAFETENSORS_DTYPES and not (widen or bits):
             raise ModelLoadError(
                 f"{path}: tensor '{name}' is {dt}, a dtype this reader does not read",
                 details="Readable: " + ", ".join(SAFETENSORS_DTYPES)
                 + ". Save the checkpoint in F32 or F16 first.",
             )
-        dtype = np.dtype("<u2" if widen else SAFETENSORS_DTYPES[dt])
+        dtype = np.dtype("<u2" if widen or bits else SAFETENSORS_DTYPES[dt])
         shape = tuple(int(s) for s in spec["shape"])
         start, end = (int(o) for o in spec["data_offsets"])
         count = math.prod(shape)

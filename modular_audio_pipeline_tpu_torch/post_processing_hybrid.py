@@ -1,12 +1,13 @@
-"""Hybrid LLM post-processing: OpenAI -> local Llama LM -> heuristic.
+"""Hybrid LLM post-processing: OpenAI -> local LM -> heuristic.
 
 Counterpart of ``modular_audio_pipeline_tpu/post_processing_hybrid.py``,
 with the same backend ladder:
 
 1. **openai**: when a key exists and ``force_local`` is False;
-2. **local**: a converted llama-family checkpoint (``local_model``, a
-   directory with ``params.npz`` and ``tokenizer.json``, optionally
-   ``"dir::config"``), run by :class:`~.models.lm.LlamaLM` on the card;
+2. **local**: a converted checkpoint (``local_model``, a directory with
+   ``params.npz`` and ``tokenizer.json``, optionally ``"dir::name"`` with a
+   name of ``models.lm.LM_MODELS``: the llama family, or
+   ``deepseek-v2-lite``), run on the card by the model's LM class;
    the ``tokenizers`` package is imported only here;
 3. **heuristic**: the always-available extractive analyzer
    (frequency-scored summary, content-word topics, modal-verb action
@@ -169,7 +170,9 @@ def extract_json_block(raw: str) -> Optional[Dict[str, Any]]:
 
 
 class LocalLMAnalyzer:
-    """Meeting analysis on a converted llama-family checkpoint, on the card."""
+    """Meeting analysis on a converted local checkpoint, on the card. The
+    model's name picks its configuration, LM class, end-of-text id and
+    loader from ``models.lm.LM_MODELS``: the llama family, or DeepSeek-V2."""
 
     def __init__(self, weights_dir: str, model_name: str = "tinyllama-1.1b",
                  temperature: float = 0.3, max_length: int = 2048, device=None):
@@ -177,17 +180,16 @@ class LocalLMAnalyzer:
 
         import torch
 
-        from .models.lm import LLAMA_CONFIGS, LlamaLM
-        from .models.lm.llama import params_from_jax
-        from .models.whisper.convert import load_params
+        from .models.lm import LM_MODELS
         from .utils import resolve_device
 
         self.temperature = temperature
         self.max_length = max_length
-        cfg = LLAMA_CONFIGS[model_name]
+        model = LM_MODELS[model_name]
+        self.eos_id = getattr(model.config, "eos_id", 2)  # llama's </s> where unstated
         dev = resolve_device(device)
-        params = params_from_jax(load_params(weights_dir), dev, torch.bfloat16)
-        self.lm = LlamaLM(cfg, params=params, device=dev)
+        self.lm = model.lm(model.config, params=model.load(weights_dir, dev, torch.bfloat16),
+                           device=dev)
 
         tok_file = Path(weights_dir) / "tokenizer.json"
         if not tok_file.exists():
@@ -208,7 +210,7 @@ class LocalLMAnalyzer:
             np.asarray(ids, dtype=np.int32),
             max_new_tokens=min(512, self.lm.cfg.max_seq - len(ids) - 1),
             temperature=self.temperature,
-            eos_id=2,  # llama </s>
+            eos_id=self.eos_id,
         )
         raw = self.tokenizer.decode([int(t) for t in out_ids])
         data = extract_json_block(raw)
