@@ -44,6 +44,19 @@ Phases (any failure exits non-zero and prints no result line):
    kernel's time, its eager time, the plain version's and, as a yardstick
    the port never calls, ``torch.matmul``'s in bf16 on a weight dequantised
    beforehand, beside the bound (one ``int8_matmul_shapes`` line).
+3c. The DeepSeek-V2 decode attention kernel (``ops/mla_decode``) against
+   its plain version ``_absorbed_attention`` at DeepSeek-V2-Lite's decode
+   shape over the ``notes_16k`` cell's cache (B 1, H 16, ctx 16,512, R 512,
+   rope 64, nope 128, v 128), the query mid-cache, in bf16 (the
+   tensor-core route the cell runs) and in f32 (the CUDA-core route),
+   within the card test's tolerance, twice for equal bits; timed with
+   every position attended, from CUDA-graph replays over eight layers'
+   distinct caches, beside the plain version and the bound. Then V2-Lite's attention at its depth (27
+   layers, narrow feed-forward widths): eager decode steps with the
+   launch count reset just before and read just after must make 3
+   launches a layer a step, and ``generate`` through its captured graph
+   must count 27 layers a decode step in the tracing counter
+   ``mla_decode.layers``.
 4. End to end: ``WhisperTranscriber("large-v3-turbo", weights_path="random:0",
    beam_size=5, max_decode_tokens=224, device="cuda")`` with the no-speech
    gate off transcribes 8 minutes of voiced audio (16 windows, one batch),
@@ -739,6 +752,110 @@ def phase_int8(torch):
     return result
 
 
+# -- phase 3c ----------------------------------------------------------------
+
+MLA_CTX = 16512  # the notes_16k cell's latent cache: a 16,384-token transcript and 128 answers
+MLA_TOL = 2e-5  # of the largest output: f32 sums in other orders (the card test's tolerance)
+MLA_STEPS = 6  # eager decode steps of the launch count
+
+
+def phase_mla(torch):
+    """Kernel 4 at V2-Lite's decode shape, bf16 and f32, against its plain
+    version; then its launches on the decode path (the docstring's phase
+    3c). In bf16 both results are rounded once, so an output may land one
+    bf16 step (2^-7 |x| at most) from the plain one."""
+    from dataclasses import replace
+
+    from modular_audio_pipeline_tpu_torch.models.lm import deepseek_v2 as ds
+    from modular_audio_pipeline_tpu_torch.ops.mla_decode import LAUNCHES, mla_decode, plan
+    from modular_audio_pipeline_tpu_torch.runtime import tracing
+
+    cfg = ds.DEEPSEEK_V2_CONFIGS["deepseek-v2-lite"]
+    b, h, ctx, copies = 1, cfg.n_heads, MLA_CTX, 8
+    nope, rope, r, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank, cfg.v_head_dim
+    pos = ctx // 2
+    pos_t = torch.tensor(pos, device="cuda")
+    last = torch.tensor(ctx - 1, device="cuda")  # the timed query attends every position
+    full = torch.zeros((ctx,), device="cuda")
+    mask = torch.where(torch.arange(ctx, device="cuda") <= pos, 0.0, float("-inf"))
+    scale = ds.softmax_scale(cfg)
+    flops = 2.0 * b * ctx * h * (2 * r + rope) + 2.0 * b * h * r * (nope + dv)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    result, routes = None, {}
+    for dtype, route in ((torch.bfloat16, "tensor cores"), (torch.float32, "CUDA cores")):
+        def normal(*shape, std=1.0):
+            return (torch.randn(shape, generator=g, device="cuda") * std).to(dtype)
+
+        q = normal(b, h, 1, nope + rope)
+        q_nope, q_pe = q[:, :, 0, :nope], q[:, :, 0, nope:]  # decode_step's views
+        layers = [(normal(b, ctx, r), normal(b, ctx, rope),
+                   normal(r, h * (nope + dv), std=r ** -0.5)) for _ in range(copies)]
+        want = ds._absorbed_attention(q_nope, q_pe, *layers[0], mask, cfg).float()
+        got = mla_decode(q_nope, q_pe, *layers[0], pos_t, scale)
+        again = mla_decode(q_nope, q_pe, *layers[0], pos_t, scale)
+        tol = MLA_TOL * float(want.abs().max())
+        step = 2.0 ** -7 * want.abs() if dtype == torch.bfloat16 else 0.0
+        gap = (got.float() - want).abs()
+        err = float(gap.max())
+        if not bool((gap <= tol + step).all()) or not torch.equal(got, again):
+            raise AssertionError(f"mla_decode {dtype}: max_abs_err {err:.3e} (tolerance {tol:.3e} "
+                                 f"+ one bf16 step), bit-equal twice {torch.equal(got, again)}")
+        nbytes = (b * ctx * (r + rope) + r * h * (nope + dv)) * q.element_size()
+        bound_ms, bound_by = bound(nbytes, flops, PEAK_F32_FLOPS)
+        ms = graph_ms([lambda c=c: mla_decode(q_nope, q_pe, *c, last, scale) for c in layers],
+                      reps=10)
+        plain_ms = graph_ms([lambda c=c: ds._absorbed_attention(q_nope, q_pe, *c, full, cfg)
+                             for c in layers], reps=3)
+        routes[str(dtype).split(".")[-1]] = {"route": route, "ms": ms, "plain_ms": plain_ms,
+                                             "bound_ms": bound_ms, "bound_by": bound_by,
+                                             "max_abs_err": err, "tolerance": tol}
+        log(f"mla_decode [{b}, {h}, {ctx}, {r} + {rope}] {dtype} ({route}), query at {pos}, "
+            f"splits {plan(ctx, b)}: max_abs_err {err:.3e} (tolerance {tol:.3e}), two runs "
+            f"bit-equal; every position attended: kernel {ms * 1e3:.2f} us a layer, plain "
+            f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}), {copies} "
+            f"layers' caches")
+        if dtype == torch.bfloat16:
+            result = {"name": "mla_decode", "route": "cuda",
+                      "source": "modular_audio_pipeline_tpu_torch/csrc/mla_decode.cu",
+                      "replaces": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by}
+        del q, layers, want, got, again
+        torch.cuda.empty_cache()
+    result["routes"] = routes
+
+    # the decode path: V2-Lite's attention shapes and depth, narrow elsewhere
+    small = replace(cfg, d_model=256, d_ff=256, moe_d_ff=64, n_experts=8, vocab_size=1024,
+                    max_seq=4096, bos_id=1, eos_id=2)
+    params = ds.init_params(small, torch.Generator(device="cuda").manual_seed(5), device="cuda")
+    prompt = torch.from_numpy(np.random.default_rng(23).integers(3, small.vocab_size, size=512))
+    cache = ds.MLACache.zeros(small, 1, 512 + MLA_STEPS + 1, torch.bfloat16, "cuda")
+    logits, cache = ds.forward(params, small, prompt.cuda()[None], cache, last_only=True)
+    wrappers = _reset_launches()
+    for _ in range(MLA_STEPS):
+        logits, cache = ds.forward(params, small, logits[:, -1:].argmax(-1), cache)
+    torch.cuda.synchronize()
+    eager = wrappers["mla_decode"].launches
+    with tracing.record() as rec:
+        ds.DeepseekV2LM(small, params=params, device="cuda").generate(
+            prompt.numpy(), max_new_tokens=MLA_STEPS + 1, temperature=0.0)
+    steps = rec.counters.get("lm.decode_steps", 0)
+    counted = rec.counters.get("mla_decode.layers", 0)
+    log(f"mla_decode on the decode path ({small.n_layers} layers): {eager} launches over "
+        f"{MLA_STEPS} eager steps; generate's captured graph counted {counted} layers over "
+        f"{steps} steps")
+    if eager != LAUNCHES * small.n_layers * MLA_STEPS:
+        raise AssertionError(f"mla_decode: {eager} launches over {MLA_STEPS} eager steps, not "
+                             f"{LAUNCHES} a layer a step")
+    if steps != MLA_STEPS or counted != small.n_layers * steps:
+        raise AssertionError(f"mla_decode: {counted} layers over {steps} captured steps, not "
+                             f"{small.n_layers} a step")
+    result["launches"] = eager
+    result["layers_per_step"] = counted // steps
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return result
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 def bench_audio(seconds: float) -> np.ndarray:
@@ -758,10 +875,11 @@ def bench_audio(seconds: float) -> np.ndarray:
 def _reset_launches():
     from modular_audio_pipeline_tpu_torch.ops.ancestor_attention import ancestor_attention
     from modular_audio_pipeline_tpu_torch.ops.attention import flash_attention
+    from modular_audio_pipeline_tpu_torch.ops.mla_decode import mla_decode
     from modular_audio_pipeline_tpu_torch.ops.quant import int8_matmul
 
     wrappers = {"flash_attention": flash_attention, "ancestor_attention": ancestor_attention,
-                "int8_matmul": int8_matmul}
+                "int8_matmul": int8_matmul, "mla_decode": mla_decode}
     for w in wrappers.values():
         w.launches = 0
     flash_attention.backward_launches = 0
@@ -3453,7 +3571,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels = [phase_flash(torch), phase_ancestry(torch), phase_int8(torch)]
-    log(f"phases 2-3b done in {time.perf_counter() - t0:.1f} s")
+    mla = phase_mla(torch)
+    log(f"phases 2-3c done in {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as d:
         from modular_audio_pipeline_tpu_torch.audio_io import write_wav
 
@@ -3549,6 +3668,13 @@ def main() -> int:
         if name != "int8_matmul":
             k["launches_converted_checkpoint"] = launches_ckpt[name]
             k["launches_quality_harnesses"] = launches_quality[name]
+    # the DeepSeek-V2 decode kernel's count comes from its own decode path
+    # (phase 3c); no Whisper path runs it
+    for name, counts in (("bf16 window", launches), ("serving", launches_serving),
+                         ("separation", launches_sep), ("batch", launches_batch)):
+        if counts["mla_decode"] != 0:
+            raise AssertionError(f"the {name} path launched the DeepSeek-V2 decode kernel")
+    kernels.append(mla)
     log(json.dumps({"end_to_end": e2e, "end_to_end_int8": e2e_int8,
                     "launches_bf16_path": launches, "proxy": proxy, "serving": serving,
                     "separation": separation, "batch": batch, "seek": seek,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device times of the port's kernels, for comparing two trees.
 
-    python3 kernel_times.py [ROOT] [--e2e] [--fma-shapes]
+    python3 kernel_times.py [ROOT] [--e2e] [--fma-shapes] [--mla-only]
 
 imports ``modular_audio_pipeline_tpu_torch`` from ROOT (default: this
 file's directory), builds its kernels and prints one JSON line with the
@@ -46,10 +46,22 @@ kernel's CUDA-core route (``launch_fma`` in ROOT's
 register-tile shape of ``FMA_SHAPES`` through a small shim compiled into
 ROOT's ``_build/``, checks each against the plain version and times it at
 the f32 shape of its head dim, as ``fma_<shape>_ms`` and its registers and
-spill bytes from the ptxas log. It uses only calls
-that every version of the port since the int8 kernel has, so the same
-script times a checkout of an earlier commit unpacked elsewhere: run both
-in one job on one card and compare within that job.
+spill bytes from the ptxas log. The MLA decode kernel (``ops/mla_decode``,
+a kernel of the port that replaces no Pallas kernel; its case was added
+when the kernel replaced the DeepSeek-V2 decode step's f32 widening chain)
+is timed at DeepSeek-V2-Lite's decode over the ``notes_16k`` context
+(batch 1, 16 heads, 16,512 positions, rank 512, rope 64, bf16, every
+position attended) on eight layers' worth of distinct caches and weights
+(beyond the L2, as the step finds them), beside the plain chain it
+replaced (``_absorbed_attention``) on the same inputs, with its bound (f32
+FMAs at 67 TFLOP/s, bytes at 3.35 TB/s), its largest difference from the
+plain chain, its device launches a layer and ptxas's registers and spill
+bytes of each of its three kernels (the tensor-core attention at this
+shape); ``--mla-only`` times that case alone,
+and a tree without the kernel prints the plain chain only. It uses only
+calls that every version of the port since the int8 kernel has, so the
+same script times a checkout of an earlier commit unpacked elsewhere: run
+both in one job on one card and compare within that job.
 """
 
 from __future__ import annotations
@@ -63,6 +75,7 @@ ARGS = [a for a in sys.argv[1:] if not a.startswith("--")]
 ROOT = Path(ARGS[0]).resolve() if ARGS else HERE
 E2E = "--e2e" in sys.argv[1:]
 FMA = "--fma-shapes" in sys.argv[1:]
+MLA_ONLY = "--mla-only" in sys.argv[1:]
 sys.path.insert(0, str(ROOT))
 
 
@@ -274,6 +287,72 @@ def flash_backward(torch, out: dict) -> None:
         out[f"flash_backward_hd{hd}_spill_bytes"] = int(spills.group(1)) if spills else None
 
 
+def mla_decode_times(torch, out: dict) -> None:
+    """The MLA decode kernel at DeepSeek-V2-Lite's decode over 16,512
+    positions (module docstring), beside the plain chain it replaced."""
+    import importlib.util
+    import re
+
+    from modular_audio_pipeline_tpu_torch.ops import _build
+
+    spec = importlib.util.find_spec("modular_audio_pipeline_tpu_torch.models.lm.deepseek_v2")
+    if spec is None:
+        log("mla decode: this tree has no DeepSeek-V2, skipped")
+        return
+    from modular_audio_pipeline_tpu_torch.models.lm import deepseek_v2 as ds
+
+    cfg = ds.DEEPSEEK_V2_CONFIGS["deepseek-v2-lite"]
+    b, h, ctx, copies = 1, cfg.n_heads, 16512, 8
+    nope, rope, r, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank, cfg.v_head_dim
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def normal(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(torch.bfloat16)
+
+    q = normal(b, h, 1, nope + rope)
+    q_nope, q_pe = q[:, :, 0, :nope], q[:, :, 0, nope:]
+    layers = [(normal(b, ctx, r), normal(b, ctx, rope), normal(r, h * (nope + dv), std=r ** -0.5))
+              for _ in range(copies)]
+    pos = torch.tensor(ctx - 1, device="cuda")
+    mask = torch.zeros((ctx,), device="cuda")
+    scale = ds.softmax_scale(cfg)
+    flops = 2.0 * b * ctx * h * (2 * r + rope) + 2.0 * b * h * r * (nope + dv)
+    nbytes = 2.0 * (b * ctx * (r + rope) + r * h * (nope + dv))
+    out["mla_decode_bound_ops_us"] = flops / 67e12 * 1e6
+    out["mla_decode_bound_bytes_us"] = nbytes / 3.35e12 * 1e6
+    out["mla_plain_us"] = 1e3 * graph_ms(torch, [
+        lambda c=c: ds._absorbed_attention(q_nope, q_pe, *c, mask, cfg) for c in layers], reps=3)
+    if importlib.util.find_spec("modular_audio_pipeline_tpu_torch.ops.mla_decode") is None:
+        log(f"mla decode: this tree has no kernel; the plain chain {out['mla_plain_us']:.1f} us")
+        return
+    from modular_audio_pipeline_tpu_torch.ops.mla_decode import mla_decode
+
+    def kernel(c):
+        return mla_decode(q_nope, q_pe, *c, pos, scale)
+
+    out["mla_decode_us"] = 1e3 * graph_ms(torch, [lambda c=c: kernel(c) for c in layers], reps=10)
+    got, want = kernel(layers[0]).float(), ds._absorbed_attention(
+        q_nope, q_pe, *layers[0], mask, cfg).float()
+    out["mla_decode_max_rel_err"] = float((got - want).abs().max() / want.abs().max())
+    out["mla_decode_device_launches"] = device_launches(torch, lambda: kernel(layers[0]))
+    text = _build.build_log("mla_decode")
+    for name, tag in (("absorb", "mla_absorbI13__nv_bfloat16E"),
+                      ("attend_tc", "mla_attend_tcILi16ELi512ELi64E"),
+                      ("combine", "mla_combineI13__nv_bfloat16E")):
+        if tag not in text:
+            continue
+        tail = text[text.index(tag):]
+        regs = re.search(r"Used (\d+) registers", tail)
+        spills = re.search(r"(\d+) bytes spill stores", tail)
+        out[f"mla_{name}_registers"] = int(regs.group(1)) if regs else None
+        out[f"mla_{name}_spill_bytes"] = int(spills.group(1)) if spills else None
+    log(f"mla decode [1, 16, {ctx}, {r} + {rope}] bf16: {out['mla_decode_us']:.2f} us a layer, "
+        f"the plain chain {out['mla_plain_us']:.1f} us, bound "
+        f"{out['mla_decode_bound_ops_us']:.2f} us (ops) / {out['mla_decode_bound_bytes_us']:.2f} "
+        f"us (bytes); within {out['mla_decode_max_rel_err']:.2e} of the plain chain over its "
+        f"largest; {out['mla_decode_device_launches']} device launches")
+
+
 def fma_shapes(torch, out: dict) -> None:
     """The CUDA-core route at each shape of FMA_SHAPES: built in parallel,
     held to the plain version (1e-4, f32) at ragged lengths, timed."""
@@ -345,6 +424,10 @@ def main() -> int:
 
     g = torch.Generator(device="cuda").manual_seed(0)
     out = {"root": str(ROOT), "card": torch.cuda.get_device_name(0)}
+    if MLA_ONLY:
+        mla_decode_times(torch, out)
+        print(json.dumps(out))
+        return 0
     x = torch.randn((80, 1280), generator=g, device="cuda").to(torch.bfloat16)
     w = torch.randn((1280, 1280), generator=g, device="cuda").to(torch.bfloat16)
     out["host_us_bf16_matmul_at_start"] = host_us(torch, lambda: torch.matmul(x, w))
@@ -368,6 +451,8 @@ def main() -> int:
     flash_backward(torch, out)
     if FMA:
         fma_shapes(torch, out)
+    mla_decode_times(torch, out)
+    torch.cuda.empty_cache()
 
     bw, kq, h, hd, layers, layer = 16, 5, 20, 64, 2, 1
     for ctx in (448, 64):

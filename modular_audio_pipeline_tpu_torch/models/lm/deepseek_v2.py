@@ -27,10 +27,15 @@ only its fused routes are allowed, so no ``[H, S, S]`` score tensor is
 ever built). The decode step (one token, :func:`decode_step`) attends over
 the whole latent cache, the positions past its own masked, in the absorbed
 form: ``q_lat = q_nope W_uk`` per head (``[H, kv_lora_rank]``), scores
-``q_lat c_kv^T + q_pe k_pe^T``, ``o = (p c_kv) W_uv``, in f32. It reads its
-position from a device tensor, so on the card ``generate`` captures it once
-a request as a CUDA graph (:class:`DecodeGraph`) and replays it a step at a
-time. The cache (:class:`MLACache`) holds ``c_kv`` after its norm and
+``q_lat c_kv^T + q_pe k_pe^T``, ``o = (p c_kv) W_uv``, in f32. On the card
+that is the hand-written kernel ``ops/mla_decode`` (``csrc/mla_decode.cu``:
+the bf16 cache and ``w_kvb`` read once, exact products summed in f32, a
+split context merged in a fixed order); on the CPU the plain
+:func:`_absorbed_attention`, which is also the kernel's oracle
+(:func:`mla_decode_emulation` writes out the kernel's arithmetic). It reads
+its position from a device tensor, so on the card ``generate`` captures it
+once a request as a CUDA graph (:class:`DecodeGraph`) and replays it a step
+at a time. The cache (:class:`MLACache`) holds ``c_kv`` after its norm and
 ``k_pe`` after RoPE, ``kv_lora_rank + rope`` values a token a layer (576 at
 V2-Lite, where decompressed K and V would take 5,120), and is written in
 place.
@@ -79,12 +84,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...ops.mla_decode import LAUNCHES as MLA_LAUNCHES
+from ...ops.mla_decode import TILE, mla_decode, plan
 from ...runtime import tracing
 from ...utils import resolve_device
 
 __all__ = ["DeepseekV2Config", "DEEPSEEK_V2_CONFIGS", "MLACache", "DeepseekV2LM", "forward",
            "decode_step", "DecodeGraph", "init_params", "yarn_inv_freq", "softmax_scale",
-           "convert_hf_deepseek_v2", "rope_permutation"]
+           "convert_hf_deepseek_v2", "rope_permutation", "mla_decode_emulation"]
 
 Params = Dict[str, Any]
 Q_BLOCK = 2048  # the prefill's queries an attention call
@@ -318,6 +325,85 @@ def _absorbed_attention(q_nope: torch.Tensor, q_pe: torch.Tensor, c_kv: torch.Te
     return torch.einsum("bhr,rhv->bhv", o_lat, wkvb[..., nope:]).to(q_nope.dtype)
 
 
+def _split3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """f32 ``x`` as three bf16 values (held in f32) that sum to it exactly,
+    largest first, as the card kernel's tensor-core route splits q_lat and
+    p: each part keeps eight bits of the rest, and 24 bits remain to be
+    split."""
+    hi = x.to(torch.bfloat16).float()
+    rest = x - hi
+    mid = rest.to(torch.bfloat16).float()
+    return hi, mid, (rest - mid).to(torch.bfloat16).float()
+
+
+def mla_decode_emulation(q_nope: torch.Tensor, q_pe: torch.Tensor, c_kv: torch.Tensor,
+                         k_pe: torch.Tensor, w_kvb: torch.Tensor, pos: int, cfg: DeepseekV2Config,
+                         chunk: Optional[int] = None, tile: int = TILE,
+                         tensor_cores: Optional[bool] = None) -> torch.Tensor:
+    """The card's kernel (``ops/mla_decode``) step by step, in plain PyTorch:
+    the inputs of :func:`_absorbed_attention`, the query at position
+    ``pos`` (an int; the positions up to it are attended) -> ``[B, H, v]``.
+
+    Absorb ``q_lat = q_nope W_uk`` in f32; the context cut into splits of
+    ``chunk`` positions (the kernel's :func:`plan` by default), each taken in
+    tiles of ``tile``; per tile the scores ``(q_lat c_kv + q_pe k_pe)
+    scale``, a running max and sum in f32 with the exponential as exp2 of
+    the difference times log2(e), and an unnormalised ``o_lat += p c_kv``
+    (``p`` never rounded); splits and tiles past ``pos`` skipped. The splits
+    are merged by their maxima, ``o_lat = sum_s exp(m_s - M) o_s / sum_s
+    exp(m_s - M) l_s``, then un-absorbed, ``o = o_lat W_uv`` in f32, and
+    rounded once.
+
+    ``tensor_cores`` (by default the kernel's choice: a bf16 cache at 16
+    heads) takes the route of ``mla_attend_tc``: the two products against
+    the cache take ``q`` and ``p`` as their three parts (:func:`_split3`),
+    each part's product with the cache's bf16 values exact in f32, and the
+    three summed in f32. Otherwise they are f32 products, as
+    ``mla_attend`` makes them on the CUDA cores. Nothing on the main path
+    calls this: it states what the kernel commits to, for the CPU tests
+    that hold it to the plain version."""
+    log2e = 1.4426950408889634
+    b, h, nope = q_nope.shape
+    r = cfg.kv_lora_rank
+    if chunk is None:
+        chunk = plan(c_kv.shape[1], b)[0]
+    if tensor_cores is None:
+        tensor_cores = c_kv.dtype == torch.bfloat16 and h == 16
+
+    def product(a, cache):  # a [B, H, K] f32 by the cache's values [B, K, N]
+        if not tensor_cores:
+            return torch.matmul(a, cache)
+        hi, mid, lo = _split3(a)
+        return (torch.matmul(hi, cache) + torch.matmul(mid, cache)) + torch.matmul(lo, cache)
+
+    wkvb = w_kvb.float().view(r, h, nope + cfg.v_head_dim)
+    qf = torch.cat([torch.einsum("bhn,rhn->bhr", q_nope.float(), wkvb[..., :nope]),
+                    q_pe.float()], dim=-1)
+    kf = torch.cat([c_kv.float(), k_pe.float()], dim=-1)
+    scale = softmax_scale(cfg)
+    last = int(pos)
+    parts = []
+    for c0 in range(0, last + 1, chunk):
+        m = torch.full((b, h, 1), float("-inf"), device=qf.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, h, r), device=qf.device)
+        for t0 in range(c0, min(c0 + chunk, last + 1), tile):
+            keys = kf[:, t0:min(t0 + tile, c0 + chunk, last + 1)]
+            s = product(qf, keys.transpose(1, 2)) * scale
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            corr = torch.exp2((m - m_new) * log2e)
+            p = torch.exp2((s - m_new) * log2e)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            acc = acc * corr + product(p, keys[..., :r])
+            m = m_new
+        parts.append((m, l, acc))
+    top = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    wts = [torch.exp2((m - top) * log2e) for m, _, _ in parts]
+    total = sum(w * l for w, (_, l, _) in zip(wts, parts))
+    o_lat = sum(w * acc for w, (_, _, acc) in zip(wts, parts)) / total
+    return torch.einsum("bhr,rhv->bhv", o_lat, wkvb[..., nope:]).to(q_nope.dtype)
+
+
 def _attention_input(x, blocks, l, cfg, cos, sin):
     """From the residual ``x [B, S, d]``: the queries ``[B, H, S, nope +
     rope]`` with RoPE on their last ``rope``, and the new latent rows:
@@ -367,8 +453,10 @@ def forward(params: Params, cfg: DeepseekV2Config, tokens: torch.Tensor, cache: 
         raise ValueError(f"positions up to {t} do not fit a cache of {cache.c_kv.shape[2]}")
     tracing.count("moe.routed", routed_pairs(cfg, b * s))
     if s == 1:
+        launches = mla_decode.launches
         logits = decode_step(params, cfg, tokens, cache,
                              torch.tensor(pos0, dtype=torch.int64, device=tokens.device))
+        _count_kernel_layers((mla_decode.launches - launches) // MLA_LAUNCHES)
         cache.pos = t
         return logits, cache
     h, nope, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
@@ -400,19 +488,28 @@ def decode_step(params: Params, cfg: DeepseekV2Config, tokens: torch.Tensor, cac
     masked -> logits ``[B, 1, V]`` f32; writes the token's latent rows. It
     reads no value on the host and its shapes do not change from step to
     step, so the card replays it as a CUDA graph (:class:`DecodeGraph`);
-    ``cache.pos`` is the caller's to advance."""
+    ``cache.pos`` is the caller's to advance. The attention is the kernel
+    ``ops/mla_decode`` for a cache on the card, :func:`_absorbed_attention`
+    elsewhere."""
     b = tokens.shape[0]
     ctx = cache.c_kv.shape[2]
-    dv = cfg.v_head_dim
+    nope, dv = cfg.qk_nope_dim, cfg.v_head_dim
     x = params["tok_emb"][tokens]
     cos, sin = _rope_tables(cfg, pos[None])
-    mask = torch.where(torch.arange(ctx, device=pos.device) <= pos, 0.0, float("-inf"))
+    card = cache.c_kv.is_cuda
+    if not card:
+        mask = torch.where(torch.arange(ctx, device=pos.device) <= pos, 0.0, float("-inf"))
     blocks = params["blocks"]
     for l in range(cfg.n_layers):
         q, c_kv, k_pe = _attention_input(x, blocks, l, cfg, cos, sin)
         _write_latent(cache, l, pos[None], c_kv, k_pe)
-        att = _absorbed_attention(q[:, :, 0, :cfg.qk_nope_dim], q[:, :, 0, cfg.qk_nope_dim:],
-                                  cache.c_kv[l], cache.k_pe[l], blocks["w_kvb"][l], mask, cfg)
+        q_nope, q_pe = q[:, :, 0, :nope], q[:, :, 0, nope:]
+        if card:
+            att = mla_decode(q_nope, q_pe, cache.c_kv[l], cache.k_pe[l], blocks["w_kvb"][l], pos,
+                             softmax_scale(cfg))
+        else:
+            att = _absorbed_attention(q_nope, q_pe, cache.c_kv[l], cache.k_pe[l],
+                                      blocks["w_kvb"][l], mask, cfg)
         x = x + torch.matmul(att.reshape(b, 1, cfg.n_heads * dv), blocks["w_o"][l])
         x = _feed_forward(x, params, l, cfg)
     return _logits(params, cfg, x)
@@ -423,7 +520,10 @@ class DecodeGraph:
     buffers (the token, its position, the cache, the logits) and replayed
     a step at a time: one launch a step in place of the step's thousands.
     The warm-up call before the capture writes the cache's last position,
-    which no step of a generation reads (the last token is not fed)."""
+    which no step of a generation reads (the last token is not fed).
+    ``kernel_layers`` is the number of layers whose attention the capture
+    sent through ``ops/mla_decode``: the wrapper does not run in a replay,
+    so :func:`_decode` counts them for it."""
 
     def __init__(self, params: Params, cfg: DeepseekV2Config, cache: MLACache):
         dev = cache.c_kv.device
@@ -435,10 +535,15 @@ class DecodeGraph:
             decode_step(params, cfg, self.tokens, cache, self.pos)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
+        launches = mla_decode.launches
         with torch.cuda.graph(self.graph):
             self.logits = decode_step(params, cfg, self.tokens, cache, self.pos)
+        self.kernel_layers = (mla_decode.launches - launches) // MLA_LAUNCHES
+        self.ctx = cache.c_kv.shape[2]
 
     def __call__(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
+        if not 0 <= pos < self.ctx:
+            raise ValueError(f"position {pos} does not fit a cache of {self.ctx}")
         self.tokens.copy_(tokens)
         self.pos.fill_(pos)
         self.graph.replay()
@@ -518,8 +623,10 @@ class DeepseekV2LM:
         request's cache), elsewhere they run :func:`forward`. A request is
         the span ``lm.generate``, holding ``lm.prefill`` and ``lm.decode``
         (the decode loop, which starts after the graph's capture); the
-        counter ``lm.decode_steps`` counts the decode loop's steps, and
-        ``moe.routed`` the token-expert pairs routed."""
+        counter ``lm.decode_steps`` counts the decode loop's steps,
+        ``moe.routed`` the token-expert pairs routed and
+        ``mla_decode.layers`` the layers whose attention ran the card's
+        kernel (``n_layers`` a step on the card, none on the CPU)."""
         cfg = self.cfg
         dev = self.params["tok_emb"].device
         prompt = torch.as_tensor(np.asarray(prompt_ids), dtype=torch.int64, device=dev)[None]
@@ -558,9 +665,17 @@ def _decode(step: Optional[DecodeGraph], params: Params, cfg: DeepseekV2Config,
     if step is None:
         return forward(params, cfg, tokens, cache)[0]
     tracing.count("moe.routed", routed_pairs(cfg, tokens.shape[0]))
+    _count_kernel_layers(step.kernel_layers)
     logits = step(tokens, cache.pos)
     cache.pos += 1
     return logits
+
+
+def _count_kernel_layers(n: int) -> None:
+    """The counter ``mla_decode.layers``: layers whose decode attention ran
+    the card's kernel."""
+    if n:
+        tracing.count("mla_decode.layers", n)
 
 
 def rope_permutation(rope: int) -> np.ndarray:

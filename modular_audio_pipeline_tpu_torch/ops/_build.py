@@ -26,7 +26,7 @@ __all__ = ["KERNELS", "build", "load", "build_log"]
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("flash_attention", "ancestor_attention", "int8_matmul")
+KERNELS = ("flash_attention", "ancestor_attention", "int8_matmul", "mla_decode")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -146,6 +146,121 @@ def test_prefill_attends_in_query_blocks_and_decode_through_the_latent(params, m
     assert LITE.kv_lora_rank + LITE.qk_rope_dim == 576
 
 
+def _attention_inputs(cfg, b, ctx, seed, dtype=torch.float32, device="cpu"):
+    """Random inputs of the absorbed attention at ``cfg``'s head shapes:
+    q_nope and q_pe as views of one ``[B, H, 1, nope + rope]`` query (as
+    ``decode_step`` slices them), the latent cache after its norm and RoPE,
+    w_kvb at the projections' scale."""
+    g = torch.Generator(device).manual_seed(seed)
+    h, nope, rope, r = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
+
+    def normal(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device=device) * std).to(dtype)
+
+    q = normal(b, h, 1, nope + rope)
+    return (q[:, :, 0, :nope], q[:, :, 0, nope:], normal(b, ctx, r), normal(b, ctx, rope),
+            normal(r, h * (nope + cfg.v_head_dim), std=r ** -0.5))
+
+
+def _mask(ctx, pos, device="cpu"):
+    return torch.where(torch.arange(ctx, device=device) <= pos, 0.0, float("-inf"))
+
+
+# (batch, context, query position, positions a split): a split past the
+# query skipped and a partial tile; a context of no whole tile; the first
+# position alone; the kernel's own plan at batch 2
+EMULATED = [(1, 150, 100, 64), (1, 97, 50, 32), (1, 97, 0, 32), (2, 300, 299, None)]
+
+
+def _close(got, want, tol):
+    """Two results of f32 sums in other orders agree within ``tol``; in
+    bf16, where each was rounded once, they may land one bf16 step apart
+    where the f32 values straddle a rounding boundary, and the spacing of
+    bf16 near x is at most 2^-7 |x|."""
+    gap = (got.float() - want.float()).abs()
+    step = 2.0 ** -7 * want.float().abs() if got.dtype == torch.bfloat16 else 0.0
+    assert bool((gap <= tol + step).all()), float(gap.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b, ctx, pos, chunk", EMULATED,
+                         ids=["skipped-split", "ragged-context", "first-position", "planned-b2"])
+@pytest.mark.parametrize("cfg", [CFG, LITE], ids=["test-small", "deepseek-v2-lite-heads"])
+def test_the_kernels_arithmetic_equals_the_plain_attention(cfg, b, ctx, pos, chunk, dtype):
+    """``mla_decode_emulation`` (the card kernel's splits, tiles, online
+    softmax, fixed-order merge) against ``_absorbed_attention``, on each of
+    the kernel's four routes: f32 caches and test-small's bf16 take f32
+    products (the CUDA cores), V2-Lite's bf16 cache the three-part exact
+    products of the tensor cores. The same sums in another order, so
+    within f32 rounding (the widest gap measured is 1.7e-6 on outputs of
+    about 1; at most 576 products a score and 300 a weighted sum, so a few
+    hundred ulps is the tolerance); in bf16 both round once more."""
+    args = _attention_inputs(cfg, b, ctx, seed=ctx + pos, dtype=dtype)
+    want = ds._absorbed_attention(*args, _mask(ctx, pos), cfg)
+    got = ds.mla_decode_emulation(*args, pos, cfg, chunk=chunk)
+    assert got.shape == (b, cfg.n_heads, cfg.v_head_dim) and got.dtype == dtype
+    tol = 2e-5 * float(want.float().abs().max())
+    _close(got, want, tol)
+    # the positions past the query are not read: the kernel's arithmetic
+    # on a cache cut at the query gives the same output
+    cut = [a if a.dim() != 3 or a.shape[1] != ctx else a[:, :pos + 1] for a in args]
+    _close(ds.mla_decode_emulation(*cut, pos, cfg, chunk=chunk), got, tol)
+
+
+@pytest.mark.parametrize("exponent", [0, -20, -60, 30], ids=["1", "2^-20", "2^-60", "2^30"])
+def test_three_bf16_parts_sum_to_the_f32_value(exponent):
+    """The tensor-core route's split: each part a bf16 value, largest
+    first, and their sum the f32 value exactly, so each part's product
+    with a bf16 cache value is exact in f32."""
+    x = torch.randn(4096, generator=torch.Generator().manual_seed(3)) * 2.0 ** exponent
+    hi, mid, lo = ds._split3(x)
+    for part in (hi, mid, lo):
+        assert torch.equal(part, part.to(torch.bfloat16).float())
+    assert torch.equal((hi + mid) + lo, x)
+    assert bool((mid.abs() <= hi.abs() * 2.0 ** -8).all() and (lo.abs() <= mid.abs()).all())
+    assert float((x - hi).abs().max()) > 0  # f32 values that one bf16 would round
+
+
+@pytest.mark.parametrize("ctx, b, want", [(16512, 1, (128, 129)), (16512, 2, (256, 65)),
+                                          (127, 1, (32, 4)), (1, 1, (32, 1)), (4097, 3, (96, 43))])
+def test_the_kernels_plan_fills_the_sms_once(ctx, b, want):
+    """Whole tiles a split, at most ``132 // B`` splits, the context covered."""
+    from modular_audio_pipeline_tpu_torch.ops import mla_decode as mla
+
+    chunk, n_split = mla.plan(ctx, b)
+    assert (chunk, n_split) == want
+    assert chunk % mla.TILE == 0 and n_split * chunk >= ctx > (n_split - 1) * chunk
+    assert n_split * b <= max(132, b)
+    # the kernel is built for every configuration's heads
+    assert {(c.n_heads, c.kv_lora_rank, c.qk_rope_dim, c.qk_nope_dim, c.v_head_dim)
+            for c in ds.DEEPSEEK_V2_CONFIGS.values()} <= mla.SHAPES
+
+
+def test_the_cpu_decode_step_keeps_the_plain_route_and_counts_no_kernel_layers(params,
+                                                                             monkeypatch):
+    """On the CPU every decode step's attention is ``_absorbed_attention``;
+    the kernel's wrapper is never called and the tracing counter
+    ``mla_decode.layers`` is not counted."""
+    from modular_audio_pipeline_tpu_torch.ops import mla_decode as mla
+
+    def refuse(*a):
+        raise AssertionError("the card's kernel called on the CPU")
+
+    refuse.launches = mla.mla_decode.launches
+    monkeypatch.setattr(ds, "mla_decode", refuse)
+    plain = []
+    real = ds._absorbed_attention
+    monkeypatch.setattr(ds, "_absorbed_attention", lambda *a: plain.append(1) or real(*a))
+    before = mla.mla_decode.launches
+    with tracing.record() as rec:
+        out = ds.DeepseekV2LM(CFG, params=params).generate(tokens(20).numpy(), max_new_tokens=4,
+                                                           temperature=0.0)
+    assert len(out) == 4 and len(plain) == 3 * CFG.n_layers
+    assert rec.counters["lm.decode_steps"] == 3
+    assert "mla_decode.layers" not in rec.counters
+    assert mla.mla_decode.launches == refuse.launches == before
+
+
 @pytest.mark.parametrize("prompt", [30, 90], ids=["inside-original-context", "past-it"])
 def test_decode_steps_through_the_latent_cache_equal_the_full_forward(params, prompt):
     """Prefill, then 8 absorbed decode steps, each step's logits against
@@ -451,3 +566,74 @@ def test_the_decode_graph_replays_the_eager_step(cuda):
         eager.append(int(logits[0, -1].argmax()))
         logits, cache = ds.forward(p16, CFG, torch.tensor([[eager[-1]]], device=cuda), cache)
     assert out.tolist() == eager
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("ctx", [1, 127, 4097, 16512])
+def test_the_mla_kernel_equals_the_plain_attention_on_the_card(cuda, ctx, b, dtype):
+    """The kernel against ``_absorbed_attention`` at V2-Lite's heads, the
+    query mid-cache (the positions past it hold values that must not be
+    read). Both compute in f32, in other orders; the f32 results differ by
+    a few ulps of the largest output (2e-5 of it allows for sums over
+    16,512 positions). In bf16 both round that result once, so an output
+    may land one bf16 step away where the f32 values straddle a rounding
+    boundary: the spacing of bf16 near x is at most 2^-7 |x|."""
+    from modular_audio_pipeline_tpu_torch.ops import mla_decode as mla
+
+    args = _attention_inputs(LITE, b, ctx, seed=ctx + b, dtype=dtype, device=cuda)
+    pos = ctx // 2
+    want = ds._absorbed_attention(*args, _mask(ctx, pos, cuda), LITE).float()
+    before = mla.mla_decode.launches
+    got = mla.mla_decode(*args, torch.tensor(pos, device=cuda), ds.softmax_scale(LITE))
+    assert mla.mla_decode.launches == before + mla.LAUNCHES
+    assert got.dtype == dtype and got.shape == (b, LITE.n_heads, LITE.v_head_dim)
+    tol = 2e-5 * float(want.abs().max())
+    _close(got, want, tol)
+    # the kernel's arithmetic, written out for its route, on the same inputs
+    _close(got, ds.mla_decode_emulation(*args, pos, LITE), tol)
+
+
+def test_the_mla_kernel_refuses_what_it_was_not_built_for(cuda):
+    from modular_audio_pipeline_tpu_torch.ops import mla_decode as mla
+
+    args = list(_attention_inputs(LITE, 1, 64, seed=1, dtype=torch.bfloat16, device=cuda))
+    pos = torch.tensor(10, device=cuda)
+    scale = ds.softmax_scale(LITE)
+    with pytest.raises(ValueError, match="one type"):
+        mla.mla_decode(args[0].float(), *args[1:], pos, scale)
+    with pytest.raises(ValueError, match="not built"):
+        mla.mla_decode(args[0], args[1], args[2][..., :256], args[3], args[4][:256], pos, scale)
+    with pytest.raises(ValueError, match="0-d int64"):
+        mla.mla_decode(*args, pos.int(), scale)
+    with pytest.raises(ValueError, match="CUDA device"):
+        mla.mla_decode(*args, pos.cpu(), scale)
+
+
+def _lite_attention_small_rest():
+    """V2-Lite's attention shapes and depth (27 layers, the first dense)
+    with narrow feed-forward widths and vocabulary, so that a card test
+    makes its weights in a moment: the kernel sees V2-Lite's shapes."""
+    from dataclasses import replace
+
+    return replace(LITE, d_model=256, d_ff=256, moe_d_ff=64, n_experts=8, vocab_size=1024,
+                   max_seq=4096, bos_id=1, eos_id=2)
+
+
+@pytest.mark.parametrize("which", ["test-small", "deepseek-v2-lite-attention"])
+def test_a_captured_step_counts_every_layer_through_the_kernel(cuda, which):
+    """The graph's capture sends every layer's attention through the kernel
+    (``DecodeGraph.kernel_layers``), and each replay counts them:
+    ``mla_decode.layers`` is ``n_layers`` a decode step."""
+    cfg = CFG if which == "test-small" else _lite_attention_small_rest()
+    p16 = ds.init_params(cfg, torch.Generator(cuda).manual_seed(7), device=cuda)
+    lm = ds.DeepseekV2LM(cfg, params=p16, device=cuda)
+    cache = ds.MLACache.zeros(cfg, 1, 48, torch.bfloat16, cuda)
+    ds.forward(p16, cfg, tokens(40, seed=7).to(cuda)[None] % cfg.vocab_size, cache)
+    assert ds.DecodeGraph(p16, cfg, cache).kernel_layers == cfg.n_layers
+    with tracing.record() as rec:
+        out = lm.generate(tokens(40, seed=8).numpy() % cfg.vocab_size, max_new_tokens=6,
+                          temperature=0.0)
+    steps = rec.counters["lm.decode_steps"]
+    assert steps == len(out) - 1 == 5
+    assert rec.counters["mla_decode.layers"] == steps * cfg.n_layers
